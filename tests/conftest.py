@@ -36,3 +36,9 @@ def pytest_configure(config):
         "slow: integration tests (full SLAM drives, multichip end-to-end); "
         "run the fast unit/oracle tier with `pytest -m 'not slow'` (<2 min)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); skips "
+        "without one. On the card (which has no jax for this conftest): "
+        "`python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider`",
+    )
