@@ -4,19 +4,28 @@
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: the card's name and power limit (nvidia-smi) and the nvcc
-     build of the kernels from ``dnsjax_torch/csrc``;
+     build of the kernels from ``dnsjax_torch/csrc`` (one nvcc per source);
   2. kernels: each CUDA kernel against its plain PyTorch twin on the same
      inputs, at the shapes of the textured scene (4 levels, 2^16 rows, 8
-     features, tet; the 1992-ray mapping batch and the 500-ray tracking
-     batch, 47 samples each) and the synthetic scene (8 levels, 2^13 rows, 2
-     features, tet and trilinear): forward output and residuals, table
-     gradient, position gradient and forward-mode tangent; max errors and
-     median times (CUDA events) of kernel and twin;
+     features, tet; the 1992-ray mapping batch, the 500-ray tracking batch,
+     47 samples each, and a 262,144-point mesh chunk without residuals) and
+     the synthetic scene (8 levels, 2^13 rows, 2 features, tet and
+     trilinear): forward output and residuals, table gradient, position
+     gradient and forward-mode tangent; the sorted scatter-add on the
+     textured mapping's table-gradient rows, on 3 * 2^20 uniform rows and on
+     a skewed case, with two launches bit-identical; max errors and median
+     times (CUDA events) of kernel and twin;
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
-     card (all 40 frames unless --end-frame), then ATE RMSE of the written
-     model.npz, last keystep PSNR and the kernels' launch counts in that run;
-     then a torch.profiler breakdown of one mapping call and one tracked frame;
-  4. no JAX in the process.
+     card (all 40 frames unless --end-frame) with ``mapping.vis_every=20``
+     and ``mapping.mesh_every=20``, then ATE RMSE of the written model.npz,
+     last keystep PSNR, the hooks' walls and the kernels' launch counts in
+     that run; then a torch.profiler breakdown of one mapping call and one
+     tracked frame;
+  4. outputs: ``dnsjax_torch.cli.extract_mesh --resolution 256`` and
+     ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
+     encode kernel's launches in each; sanity bounds on the mesh and the
+     metrics;
+  5. no JAX in the process.
 Prints a JSON line of per-kernel results, then the device line last.
 """
 
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -86,6 +96,7 @@ def check_kernels(results):
     ]
     fwd = results["hash_encode_fwd"]
     sca = results["scatter_add"]
+    textured_grad = None
     for name, kw, N, timed in cases:
         spec = hashgrid.HashGridSpec(**kw)
         L, T, F = spec.n_levels, spec.table_size, spec.n_features
@@ -131,6 +142,8 @@ def check_kernels(results):
         print("kernel check " + json.dumps(line), flush=True)
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["out"], errs["w"])
         sca["max_abs_err"] = max(sca["max_abs_err"], e_tab)
+        if name == "textured-map":
+            textured_grad = (li, lv, T)
         if timed:
             fwd["ms"] = _median_ms(lambda: gather.encode_forward(pts, table, spec, True))
             fwd["plain_ms"] = _median_ms(lambda: gather.encode_forward_plain(pts, table, spec, True))
@@ -139,27 +152,114 @@ def check_kernels(results):
             print(f"timing {name}: encode fwd {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}), "
                   f"scatter {sca['ms']:.4f} ms (plain {sca['plain_ms']:.4f})", flush=True)
 
+    # the mesh query's encode: one 262,144-point chunk, S = 1, no residuals
+    spec = hashgrid.HashGridSpec(**cases[0][1])
+    table = torch.rand((spec.n_levels, spec.table_size, spec.n_features), generator=gen,
+                       device=dev) * 2 - 1
+    pts = torch.rand((262144, 3), generator=gen, device=dev)
+    got = gather.encode_forward(pts, table, spec, False)[0]
+    ref = gather.encode_forward_plain(pts, table, spec, False)[0]
+    err = _max_err(got, ref)
+    if err > 1e-6:
+        raise AssertionError(f"mesh-chunk forward mismatch: {err}")
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+    fwd["mesh_chunk_ms"] = _median_ms(lambda: gather.encode_forward(pts, table, spec, False))
+    fwd["mesh_chunk_plain_ms"] = _median_ms(
+        lambda: gather.encode_forward_plain(pts, table, spec, False))
+    print(f"timing mesh-chunk (262144 pts, no residuals): encode fwd {fwd['mesh_chunk_ms']:.4f} ms "
+          f"(plain {fwd['mesh_chunk_plain_ms']:.4f})", flush=True)
+    check_sorted_scatter(results["sorted_scatter_add"], textured_grad, gen)
+
+
+def check_sorted_scatter(res, textured_grad, gen):
+    """The sorted scatter-add: the textured mapping's table-gradient
+    contributions flattened to rows (R = L * 2^16), 3 * 2^20 uniform rows into
+    2^18, and a skewed case (10 hot rows). Each row held to 1e-5 of its sum
+    of magnitudes + 1e-7; two launches bit-identical; kernel and twin timed
+    on sorted input, and with the sort against the twin on unsorted input."""
+    import torch
+
+    from dnsjax_torch.ops import scatter
+
+    dev = torch.device("cuda")
+    li, lv, T = textured_grad
+    L, F = lv.shape[0], lv.shape[-1]
+    ok = (li >= 0) & (li < T)
+    rows = torch.where(ok, li + T * torch.arange(L, device=dev, dtype=torch.int32)[:, None],
+                       torch.full_like(li, -1))
+    M3 = 3 * 2 ** 20
+    cases = [
+        ("textured-table-grad", rows.reshape(-1), lv.reshape(-1, F), L * T),
+        ("uniform-3M", torch.randint(0, 2 ** 18, (M3,), generator=gen, device=dev,
+                                     dtype=torch.int32),
+         torch.randn((M3, 8), generator=gen, device=dev), 2 ** 18),
+        ("skewed-3M", torch.randint(0, 10, (M3,), generator=gen, device=dev, dtype=torch.int32),
+         torch.randn((M3, 8), generator=gen, device=dev), 2 ** 18),
+    ]
+    for name, idx, vals, R in cases:
+        got = scatter.sorted_scatter_add(idx, vals, R)
+        again = scatter.sorted_scatter_add(idx, vals, R)
+        ref = scatter.sorted_scatter_add_plain(idx, vals, R)
+        bound = 1e-7 + 1e-5 * scatter.sorted_scatter_add_plain(idx, vals.abs(), R)
+        torch.cuda.synchronize()
+        err = _max_err(got, ref)
+        if not bool(((got - ref).abs() <= bound).all()):
+            raise AssertionError(f"sorted scatter {name} mismatch: max err {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"sorted scatter {name}: two launches differ")
+        sidx, perm = torch.sort(idx, stable=True)
+        svals = vals[perm]
+        t = dict(case=name, M=int(idx.numel()), R=R, F=int(vals.shape[1]), max_abs_err=err,
+                 bitwise_repeatable=True,
+                 kernel_sorted_ms=_median_ms(lambda: scatter.sorted_segment_sum(sidx, svals, R)),
+                 plain_sorted_ms=_median_ms(
+                     lambda: scatter.sorted_scatter_add_plain(sidx, svals, R)),
+                 with_sort_ms=_median_ms(lambda: scatter.sorted_scatter_add(idx, vals, R)),
+                 plain_unsorted_ms=_median_ms(
+                     lambda: scatter.sorted_scatter_add_plain(idx, vals, R)))
+        print("sorted scatter " + json.dumps(t), flush=True)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if name == "textured-table-grad":
+            res["ms"], res["plain_ms"] = t["kernel_sorted_ms"], t["plain_sorted_ms"]
+            res["with_sort_ms"] = t["with_sort_ms"]
+            res["plain_unsorted_ms"] = t["plain_unsorted_ms"]
+
+
+CONFIG = os.path.join(ROOT, "configs", "synthetic", "textured.yaml")
+OUT = os.path.join(ROOT, "output", "chip_smoke_textured")
+
+
+def _reset_counts():
+    from dnsjax_torch.ops import gather, scatter
+
+    gather.LAUNCHES = scatter.LAUNCHES = scatter.SORTED_LAUNCHES = 0
+
+
+def _counts():
+    from dnsjax_torch.ops import gather, scatter
+
+    return {"hash_encode_fwd": gather.LAUNCHES, "scatter_add": scatter.LAUNCHES,
+            "sorted_scatter_add": scatter.SORTED_LAUNCHES}
+
 
 def run_slam(end_frame):
     import numpy as np
 
     from dnsjax_torch.cli import run as cli_run
     from dnsjax_torch.cli.eval_ate import ate_stats
-    from dnsjax_torch.ops import gather, scatter
 
-    out = os.path.join(ROOT, "output", "chip_smoke_textured")
-    if os.path.exists(os.path.join(out, "metrics.jsonl")):
-        os.remove(os.path.join(out, "metrics.jsonl"))
-    argv = [os.path.join(ROOT, "configs", "synthetic", "textured.yaml"),
-            "--device", "cuda", "--output", out]
+    out = OUT
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    argv = [CONFIG, "--device", "cuda", "--output", out,
+            "--set", "mapping.vis_every=20", "--set", "mapping.mesh_every=20"]
     if end_frame:
         argv += ["--end-frame", str(end_frame)]
-    gather.LAUNCHES = 0
-    scatter.LAUNCHES = 0
+    _reset_counts()
     t0 = time.perf_counter()
     slam = cli_run.main(argv)
     wall = time.perf_counter() - t0
-    launches = {"hash_encode_fwd": gather.LAUNCHES, "scatter_add": scatter.LAUNCHES}
+    launches = _counts()
     ate = float(ate_stats(os.path.join(out, "model.npz"))["absolute_translational_error.rmse"])
     n = min(end_frame, slam.n_img) if end_frame else slam.n_img
     psnr = slam.last_map_aux["psnr"]
@@ -167,17 +267,73 @@ def run_slam(end_frame):
     keystep = float(np.mean(slam.map_times[1:])) if len(slam.map_times) > 1 else float("nan")
     summary = dict(frames=n, wall_s=wall, init_map_s=slam.map_times[0], track_avg_s=track,
                    keystep_avg_s=keystep, ate_rmse_m=ate, last_keystep_psnr=psnr,
+                   frame_vis_s=slam.vis_times, save_mesh_s=slam.mesh_times,
+                   panels=sorted(f for f in os.listdir(out) if f.endswith(".jpg")),
+                   meshes=sorted(f for f in os.listdir(out) if f.endswith(".ply")),
                    launches=launches)
     print("slam " + json.dumps(summary), flush=True)
     if not all(np.isfinite(v) for v in (ate, psnr, track, keystep)):
         raise AssertionError(f"non-finite SLAM result: {summary}")
-    if min(launches.values()) <= 0:
+    if min(launches["hash_encode_fwd"], launches["scatter_add"]) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if n > 20 and (len(slam.vis_times) != 1 or len(slam.mesh_times) != 1
+                   or "00020.jpg" not in summary["panels"]):
+        raise AssertionError(f"the output hooks did not run at frame 20: {summary}")
     if not ate < 0.3:
         raise AssertionError(f"ATE RMSE {ate} m >= 0.3 m")
     if not psnr > 20.0:
         raise AssertionError(f"last keystep PSNR {psnr} <= 20 dB")
     return slam, launches
+
+
+def run_outputs(slam):
+    """Phase 4: the output CLIs on the run's model.npz."""
+    import numpy as np
+
+    from dnsjax_torch.cli import eval_2d, extract_mesh
+    from dnsjax_torch.mesh.host import native_loaded
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    mesher, mesh = extract_mesh.main([CONFIG, "--device", "cuda", "--output", OUT,
+                                      "--resolution", "256"])
+    wall = time.perf_counter() - t0
+    mesh_launches = _counts()
+    v, f, lab = mesh["vertices"], mesh["faces"], mesh.get("labels")
+    tm = mesher.last_timings
+    line = dict(resolution=mesher.resolution, points_batch=mesher.points_batch, wall_s=wall,
+                vertices=int(v.shape[0]), faces=int(f.shape[0]),
+                refined_share=tm.get("refined_share"), query_points=tm.get("query_points"),
+                query_chunks=tm.get("query_chunks"),
+                timings_s={k: tm.get(k) for k in ("encode_views", "morton", "query_dispatch",
+                                                  "grid_query", "marching", "clean",
+                                                  "vertex_attrs")},
+                native_marching=native_loaded(),
+                launches=mesh_launches)
+    print("extract_mesh " + json.dumps(line), flush=True)
+    lo = mesher.mc_bound[:, 0] - 0.05
+    hi = mesher.mc_bound[:, 1] + 0.05
+    if f.shape[0] == 0 or not np.isfinite(v).all():
+        raise AssertionError(f"empty or non-finite mesh: {line}")
+    if not ((v >= lo - 1e-4) & (v <= hi + 1e-4)).all():
+        raise AssertionError("mesh vertices outside the padded marching-cubes bound")
+    if lab is not None and not ((lab >= -1) & (lab < slam.n_class)).all():
+        raise AssertionError("vertex labels outside [-1, n_class)")
+    if mesh_launches["hash_encode_fwd"] <= 0:
+        raise AssertionError("the encode kernel never launched during extraction")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = eval_2d.evaluate([CONFIG, "--device", "cuda", "--output", OUT, "--every", "10"])
+    line = dict(wall_s=time.perf_counter() - t0, frames=[r["frame"] for r in res["rows"]],
+                render_s=res["render_s"], avg=res["avg"], launches=_counts())
+    print("eval_2d " + json.dumps(line), flush=True)
+    psnr = res["avg"]["psnr"]
+    if not (np.isfinite(psnr) and psnr > 20.0):
+        raise AssertionError(f"eval_2d PSNR {psnr} not > 20 dB")
+    if line["launches"]["hash_encode_fwd"] <= 0:
+        raise AssertionError("the encode kernel never launched during eval_2d")
+    return {"extract_mesh": mesh_launches, "eval_2d": line["launches"]}
 
 
 def profile_slam(slam, n_iters: int = 20):
@@ -251,12 +407,29 @@ def main(argv=None):
                             source="dnsjax_torch/csrc/scatter.cu",
                             replaces="dnsjax/ops/scatter.py:213", launches=0,
                             max_abs_err=0.0, ms=None, plain_ms=None),
+        # on no path of the system (dnsjax calls it only from its tests)
+        "sorted_scatter_add": dict(name="sorted_scatter_add", route="cuda",
+                                   source="dnsjax_torch/csrc/sorted_scatter.cu",
+                                   replaces="dnsjax/ops/scatter.py:65", launches=0,
+                                   max_abs_err=0.0, ms=None, plain_ms=None),
     }
+    t0 = time.perf_counter()
     check_kernels(results)
+    print(f"phase kernels wall {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
     slam, launches = run_slam(args.end_frame)
+    print(f"phase slam wall {time.perf_counter() - t0:.2f} s", flush=True)
     for k, v in launches.items():
         results[k]["launches"] = v
+        results[k]["launches_by_path"] = {"slam": v}
+    t0 = time.perf_counter()
     profile_slam(slam)
+    print(f"phase profile wall {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    for path, counts in run_outputs(slam).items():
+        for k, v in counts.items():
+            results[k]["launches_by_path"][path] = v
+    print(f"phase outputs wall {time.perf_counter() - t0:.2f} s", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported by the port")
     print("no jax in sys.modules", flush=True)

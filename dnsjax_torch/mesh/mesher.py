@@ -1,0 +1,527 @@
+"""Mesh extraction, PyTorch port of dnsjax/mesh/mesher.py: a chunked field
+query on the device, marching tetrahedra and cleanup on the host.
+
+A lattice over the marching-cubes bound (+0.05 pad) is evaluated in chunks
+of ``meshing.points_batch_size`` points. Each chunk is projected into every
+valid keyframe: the nearest half-resolution feature row, the keyframe's
+depth and label, a per-view merge MLP, the mean over observing views and
+the last-seen label; then the class-dispatched fine decoder (S = 1) gives
+occupancy and the color head the color. Out-of-bound points get occupancy
+-100 and label -1. The hierarchical query evaluates a half-resolution
+lattice first and refines only cells that may cross the level set.
+
+dnsjax scans every keyframe slot with ``lax.scan`` and skips a view with
+``lax.cond``; here the loop runs over valid slots only, and one batched
+test per chunk decides which views may see it (one host read per chunk).
+Both are exact: every contribution is gated by ``valid`` and by the same
+``seen`` predicate the test bounds. Chunk results come back through pinned
+host buffers with non-blocking copies, one chunk behind the device.
+
+Host code (lattice, Morton order, refinement flags, marching, cleaning,
+vertex attributes) is numpy, as in dnsjax; ``mesh/host.py`` shares dnsjax's
+marching and PLY writer.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from dnsjax_torch.geometry.rays import project_points, world_to_camera
+from dnsjax_torch.geometry.se3 import invert_se3
+from dnsjax_torch.mesh.host import marching_tetrahedra, write_ply
+from dnsjax_torch.models.decoder import DecoderSpec, fine_apply, merge_apply, pos_encode
+from dnsjax_torch.models.encoder import encode_images
+from dnsjax_torch.models.features import _row_gather, nearest_sample
+from dnsjax_torch.ops.mlp import mlp_apply
+
+_ROADMAP = "ROADMAP.md, Queue 1: remaining items"
+
+
+def check_supported(cfg: Dict[str, Any]) -> None:
+    """Raise NotImplementedError for every meshing option outside the port."""
+    m = cfg.get("meshing", {}) or {}
+    tpu = cfg.get("tpu", {}) or {}
+    unsupported = [
+        (bool(m.get("depth_test", False)) and bool(m.get("use_est_depth", False)),
+         "meshing.depth_test with meshing.use_est_depth", 2),
+        (bool(m.get("show_forecast", False)), "meshing.show_forecast", 2),
+        (bool(m.get("get_mask_use_all_frames", False)), "meshing.get_mask_use_all_frames", 2),
+        (int(tpu.get("feature_taps", 4)) != 1, "tpu.feature_taps: 4 in the mesher", 1),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}, {item})")
+
+
+def class_palette(n_class: int) -> np.ndarray:
+    """Semantic class -> display color (uint8 RGB), dnsjax's fixed palette."""
+    return np.random.default_rng(7).integers(0, 256, size=(max(n_class, 1), 3)).astype(np.uint8)
+
+
+class _Views(NamedTuple):
+    """Per-keyframe inputs of a query, prepared once per extraction."""
+    c2w: torch.Tensor            # (K, 4, 4)
+    w2c: torch.Tensor            # (K, 4, 4)
+    valid: torch.Tensor          # (K,) bool
+    maps: torch.Tensor           # (K, Hf, Wf, C [+ 2 fused]) compute dtype
+    depth_label: Optional[torch.Tensor]  # (K, H, W, 2) float32, separate rows only
+
+
+class Mesher:
+    def __init__(self, cfg: Dict[str, Any], cam: Dict[str, Any], bound: np.ndarray,
+                 spec: DecoderSpec, compute_dtype=torch.bfloat16, device_mesh=None):
+        check_supported(cfg)
+        if device_mesh is not None:
+            raise NotImplementedError(
+                f"a sharded mesh query (device_mesh) is not ported yet ({_ROADMAP}, 4)")
+        m = cfg["meshing"]
+        tpu = cfg.get("tpu", {}) or {}
+        self.resolution = int(m.get("resolution", 256))
+        self.points_batch = int(m.get("points_batch_size", 262144))
+        self.level_set = float(m.get("level_set", 0.0))
+        self.clean_mesh = bool(m.get("clean_mesh", True))
+        self.vertex_attr = str(m.get("vertex_attr", "interpolate"))
+        self.hierarchical = bool(m.get("hierarchical", True))
+        self.get_largest = bool(m.get("get_largest_components", False))
+        self.small_thresh = float(m.get("remove_small_geometry_threshold", 0.2))
+        self.color = bool(m.get("color", True))
+        self.label = bool(m.get("label", True))
+        self.element = bool(m.get("element", False))
+        self.depth_test = bool(m.get("depth_test", False))
+        # fused view rows: [feats | depth | label] in one half-res bf16 map
+        # per keyframe, one gather row per view-point (see fuse_view_maps)
+        self.fuse_rows = bool(tpu.get("mesh_fused_rows", True))
+        # skip views whose frustum provably sees no point of the chunk
+        self.view_skip = bool(tpu.get("mesh_view_skip", True))
+        scale = float(cfg.get("scale", 1))
+        self.mc_bound = np.asarray(
+            cfg["back_end"].get("marching_cubes_bound", cfg["back_end"]["bound"]),
+            np.float64) * scale
+        self.bound = np.asarray(bound, np.float64)
+        self.cam = cam
+        self.spec = spec
+        self.compute_dtype = compute_dtype
+        self.last_timings: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+    def fuse_view_maps(self, feats: torch.Tensor, depths: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+        """Pack per-keyframe [feats | depth | label] into one half-res bf16
+        map (K, Hf, Wf, C+2); depth and label nearest-sampled at the
+        half-res grid positions of the query's align_corners mapping."""
+        K, Hf, Wf = feats.shape[0], feats.shape[1], feats.shape[2]
+        H, W = int(self.cam["H"]), int(self.cam["W"])
+        dev = feats.device
+        yi = torch.round(torch.arange(Hf, dtype=torch.float32, device=dev)
+                         * ((H - 1.0) / (Hf - 1.0))).to(torch.int64)
+        xi = torch.round(torch.arange(Wf, dtype=torch.float32, device=dev)
+                         * ((W - 1.0) / (Wf - 1.0))).to(torch.int64)
+        d_half = depths[:, yi][:, :, xi]
+        l_half = labels[:, yi][:, :, xi].to(torch.float32)
+        bf = torch.bfloat16
+        return torch.cat([feats.to(bf), d_half[..., None].to(bf), l_half[..., None].to(bf)], -1)
+
+    def _views(self, kf_c2w, kf_valid, kf_feats, kf_labels, kf_depths) -> _Views:
+        """kf_feats: the fused maps when ``fuse_rows``, else the encoder maps."""
+        c2w = kf_c2w.to(torch.float32)
+        dl = None
+        if not self.fuse_rows:
+            dl = torch.stack([kf_depths, kf_labels.to(kf_depths.dtype)], -1)
+        return _Views(c2w, invert_se3(c2w), kf_valid.to(torch.bool), kf_feats, dl)
+
+    def query_chunk(self, params, pts, kf_c2w, kf_valid, kf_feats, kf_labels,
+                    kf_depths, bound):
+        """dnsjax's signature: pts (B, 3) -> occ (B,), label (B,), color
+        (B, 3), count (B,) of observing views."""
+        views = self._views(kf_c2w, kf_valid, kf_feats, kf_labels, kf_depths)
+        return self._query(params, pts, views, bound)
+
+    def _visible(self, pts: torch.Tensor, views: _Views) -> List[bool]:
+        """Per view: may any chunk point satisfy ``seen``? With every corner
+        of the chunk's AABB in front of the camera, the projected hull is
+        the hull of the projected corners, so corners all beyond one image
+        edge prove the view sees nothing; a corner behind the camera voids
+        that argument (unless all are behind). One host read."""
+        cam = self.cam
+        if not self.view_skip:
+            return views.valid.tolist()
+        lo, hi = pts.amin(0), pts.amax(0)
+        cbits = torch.tensor([[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
+                             dtype=pts.dtype, device=pts.device)
+        aabb = lo[None] * (1 - cbits) + hi[None] * cbits  # (8, 3)
+        uc, vc, dc = project_points(world_to_camera(aabb, views.w2c),
+                                    cam["fx"], cam["fy"], cam["cx"], cam["cy"])  # (K, 8)
+        all_behind = (dc <= 0).all(-1)
+        sep = ((uc <= 0).all(-1) | (uc >= cam["W"] - 1).all(-1)
+               | (vc <= 0).all(-1) | (vc >= cam["H"] - 1).all(-1))
+        return (views.valid & ~all_behind & ((dc <= 0).any(-1) | ~sep)).tolist()
+
+    def _query(self, params, pts: torch.Tensor, views: _Views, bound: torch.Tensor):
+        spec, cam, cdt = self.spec, self.cam, self.compute_dtype
+        B, dev = pts.shape[0], pts.device
+        W, H = cam["W"], cam["H"]
+        code_sum = torch.zeros((B, spec.hidden_dim), device=dev)
+        count = torch.zeros((B,), device=dev)
+        label = torch.zeros((B,), dtype=torch.int32, device=dev)
+        label_seen = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for k, maybe in enumerate(self._visible(pts, views)):
+            if not maybe:
+                continue
+            pc = world_to_camera(pts, views.w2c[k][None])[0]
+            u, v, d = project_points(pc, cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+            u = torch.round(u)
+            v = torch.round(v)
+            seen = (u > 0) & (u < W - 1) & (v > 0) & (v < H - 1) & (d > 0)
+            maps = views.maps[k]
+            Hf, Wf = maps.shape[0], maps.shape[1]
+            gx = u * ((Wf - 1.0) / (W - 1.0))
+            gy = v * ((Hf - 1.0) / (H - 1.0))
+            if self.fuse_rows:
+                row = nearest_sample(maps, gx, gy)  # (B, C + 2)
+                code = row[:, :-2]
+                kf_d = row[:, -2].to(torch.float32)
+                lab_f = row[:, -1].to(torch.float32)
+            else:
+                code = nearest_sample(maps, gx, gy)
+                ui = torch.clamp(u, 0, W - 1).to(torch.int64)
+                vi = torch.clamp(v, 0, H - 1).to(torch.int64)
+                dl = _row_gather(views.depth_label[k], vi, ui)  # (B, 2)
+                kf_d, lab_f = dl[:, 0], dl[:, 1]
+            if self.depth_test:
+                seen = seen & ((kf_d <= 0) | (d <= kf_d + 0.5))
+            trunc = (d > kf_d * 0.95) & (d < kf_d * 1.05) & (kf_d > 0)
+            code = code * (seen & trunc)[:, None]
+            rel = pts - views.c2w[k, :3, 3]
+            merged = merge_apply(params, rel[None], code[None], bound, spec, cdt)
+            code_sum = code_sum + merged * seen[:, None]
+            count = count + seen.to(torch.float32)
+            label = torch.where(seen, lab_f.to(torch.int32), label)
+            label_seen = label_seen | seen
+        code = code_sum / torch.clamp(count, min=1.0)[:, None]
+
+        p01 = (pts - bound[:, 0]) / (bound[:, 1] - bound[:, 0])
+        in_bound = ((p01 >= 0) & (p01 <= 1)).all(-1)
+        pe, grid = pos_encode(params, torch.clamp(p01, 0, 1), spec)
+        lat = fine_apply(params, label, pe[:, None, :], grid[:, None, :], cdt)[:, 0]
+        occ = torch.where(in_bound, lat[:, 0], torch.full_like(lat[:, 0], -100.0))
+        color = torch.sigmoid(mlp_apply(params["color"], torch.cat([pe, lat[:, 1:], code], -1),
+                                        cdt))
+        out_label = torch.where(in_bound & label_seen, label, torch.full_like(label, -1))
+        return occ, out_label, color, count
+
+    # ------------------------------------------------------------------
+    def _grid_axes(self):
+        """Per-axis lattice coordinates (float64), origin and spacing."""
+        pad = 0.05
+        lo = self.mc_bound[:, 0] - pad
+        hi = self.mc_bound[:, 1] + pad
+        r = self.resolution
+        axes = [np.linspace(lo[k], hi[k], r) for k in range(3)]
+        spacing = [(hi[k] - lo[k]) / (r - 1) for k in range(3)]
+        return axes, lo, spacing
+
+    def _encode_views(self, enc_params, kf, kf_feats):
+        K = kf.count
+        if kf_feats is not None:
+            feats = kf_feats[:K]
+        else:
+            feats = torch.cat([encode_images(enc_params, kf.colors[a:min(a + 8, K)],
+                                             self.compute_dtype)
+                               for a in range(0, max(K, 1), 8)])[:K]
+        feats = feats.to(self.compute_dtype)
+        depths, labels = kf.depths[:K], kf.labels[:K]
+        if self.fuse_rows:
+            feats = self.fuse_view_maps(feats, depths, labels)
+        valid = torch.ones((K,), dtype=torch.bool, device=feats.device)
+        return self._views(kf.est_c2w[:K], valid, feats, labels, depths)
+
+    def extract(self, params, enc_params, keyframes, class2color: Optional[np.ndarray] = None,
+                all_poses: Optional[np.ndarray] = None, kf_feats=None) -> Dict[str, np.ndarray]:
+        """The full extraction; returns the mesh dict (vertices, faces,
+        colors, labels[, label_colors]).
+
+        ``kf_feats``: optional encoder maps (>= count, Hf, Wf, C) the caller
+        already holds (keyframe images never change after insertion).
+        ``all_poses`` is accepted for dnsjax's signature; it is read only by
+        ``get_mask_use_all_frames``, which raises here."""
+        self.last_timings = {}
+        t_mark = [time.perf_counter()]
+
+        def mark(name):
+            t = time.perf_counter()
+            self.last_timings[name] = self.last_timings.get(name, 0.0) + t - t_mark[0]
+            t_mark[0] = t
+
+        def add(name, value):
+            self.last_timings[name] = self.last_timings.get(name, 0.0) + value
+
+        kf = keyframes
+        with torch.no_grad():
+            views = self._encode_views(enc_params, kf, kf_feats)
+        dev = views.c2w.device
+        mark("encode_views")
+
+        grid_axes, lo, spacing = self._grid_axes()
+        B = self.points_batch
+        interp = self.vertex_attr == "interpolate"
+        bound_t = torch.as_tensor(self.bound, dtype=torch.float32, device=dev)
+        cuda = dev.type == "cuda"
+
+        def query_points(p):
+            """Chunked field query: (M, 3) -> occ, label, color, seen. Points
+            go in Morton order, so each chunk is compact and the view skip
+            prunes; the order is a permutation (results are put back)."""
+            M = p.shape[0]
+            order = None
+            if self.view_skip and M > B:
+                t0 = time.perf_counter()
+                order = self._morton_order(p, lo, spacing)
+                p = p[order]
+                add("morton", time.perf_counter() - t0)
+            res = np.empty((M, 6), np.float32)  # occ, label, rgb, count
+            bufs = [torch.empty((B, 6), pin_memory=cuda) for _ in range(2)] if cuda else None
+            pending = None
+
+            def fetch(pend):
+                a, e, packed, ev, i = pend
+                if ev is not None:
+                    ev.synchronize()
+                    packed = bufs[i]
+                res[a:e] = packed[: e - a].numpy()
+
+            for i, a in enumerate(range(0, M, B)):
+                e = min(a + B, M)
+                t0 = time.perf_counter()
+                # pad with the chunk's last point, so padding cannot widen the
+                # AABB the view skip tests
+                chunk = np.broadcast_to(p[e - 1], (B, 3)).copy()
+                chunk[: e - a] = p[a:e]
+                with torch.no_grad():
+                    o, lab, c, cnt = self._query(params, torch.as_tensor(chunk, device=dev),
+                                                 views, bound_t)
+                    packed = torch.cat([o[:, None], lab.to(torch.float32)[:, None], c,
+                                        cnt[:, None]], -1)
+                ev = None
+                if cuda:
+                    bufs[i % 2].copy_(packed, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record()
+                if pending is not None:
+                    fetch(pending)
+                pending = (a, e, packed, ev, i % 2)
+                add("query_dispatch", time.perf_counter() - t0)
+                add("query_points", e - a)
+                add("query_chunks", 1)
+            if pending is not None:
+                t0 = time.perf_counter()
+                fetch(pending)
+                add("query_dispatch", time.perf_counter() - t0)
+            if order is not None:
+                inv = np.empty(M, np.int64)
+                inv[order] = np.arange(M)
+                res = res[inv]
+            return (res[:, 0].copy(), res[:, 1].astype(np.int32), res[:, 2:5].copy(),
+                    res[:, 5].copy())
+
+        mark("grid_setup")
+        r = self.resolution
+        if self.hierarchical and r >= 32:
+            occ, label, col, seen = self._hierarchical_query(grid_axes, query_points)
+        else:
+            X, Y, Z = np.meshgrid(*grid_axes, indexing="ij")
+            pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], -1).astype(np.float32)
+            occ, label, col, seen = query_points(pts)
+            self.last_timings["refined_share"] = 1.0
+        mark("grid_query")
+
+        verts, faces = marching_tetrahedra(occ.reshape(r, r, r), self.level_set,
+                                           origin=lo, spacing=spacing)
+        mark("marching")
+        if verts.shape[0] == 0:
+            return {"vertices": verts, "faces": faces}
+        if self.clean_mesh:
+            verts, faces = self._clean(verts, faces, seen.reshape(r, r, r), lo, spacing)
+        mark("clean")
+
+        if interp:
+            # every vertex lies on a tet edge between lattice points p0 and
+            # p0 + mask (mask in {0,1}^3): lerp the cached color, take the
+            # nearer endpoint's label (the other one if that was never seen)
+            r3 = (r,) * 3
+            g = (verts - lo) / np.asarray(spacing)
+            g0 = np.floor(g + 1e-4).astype(np.int64)
+            frac = np.clip(g - g0, 0.0, 1.0)
+            frac[frac < 1e-4] = 0.0
+            t = frac.max(axis=1)
+            g1 = np.minimum(g0 + (frac > 0), r - 1)
+            g0 = np.clip(g0, 0, r - 1)
+            f0 = np.ravel_multi_index(tuple(g0.T), r3)
+            f1 = np.ravel_multi_index(tuple(g1.T), r3)
+            vcol = (1.0 - t)[:, None] * col[f0] + t[:, None] * col[f1]
+            near = np.where(t < 0.5, f0, f1)
+            far = np.where(t < 0.5, f1, f0)
+            vlab = label[near]
+            miss = vlab < 0
+            vlab[miss] = label[far[miss]]
+        else:
+            # exact re-query at each vertex, through the same chunked path
+            _, vlab, vcol, _ = query_points(verts.astype(np.float32))
+        mark("vertex_attrs")
+        out = {"vertices": verts, "faces": faces, "colors": vcol, "labels": vlab}
+        if class2color is not None:
+            out["label_colors"] = class2color[np.clip(vlab, 0, len(class2color) - 1)]
+        return out
+
+    # ------------------------------------------------------------------
+    _MORTON_SPREAD = None  # 1024-entry bit-spread table, built at first use
+
+    @staticmethod
+    def _morton_order(p, lo, spacing):
+        """Stable argsort of points along a Morton (Z-order) curve of their
+        lattice coordinates (10 bits per axis, through a spread table)."""
+        if Mesher._MORTON_SPREAD is None:
+            v = np.arange(1 << 10, dtype=np.uint64)
+            t = np.zeros(1 << 10, np.uint64)
+            for b in range(10):
+                t |= ((v >> np.uint64(b)) & np.uint64(1)) << np.uint64(3 * b)
+            Mesher._MORTON_SPREAD = t
+        t = Mesher._MORTON_SPREAD
+        g = np.round((np.asarray(p) - lo) / np.asarray(spacing))
+        g = np.clip(g, 0, (1 << 10) - 1).astype(np.int64)
+        code = t[g[:, 0]] | (t[g[:, 1]] << np.uint64(1)) | (t[g[:, 2]] << np.uint64(2))
+        return np.argsort(code, kind="stable")
+
+    def _hierarchical_query(self, grid_axes, query_points):
+        """Coarse-to-fine evaluation over the (r, r, r) lattice: every 2nd
+        lattice point (plus the last plane per axis); coarse cells with a
+        sign change, or a corner margin to the level below the cell's own
+        spread, are refined exactly; the rest is filled by trilinear
+        interpolation (occupancy, seen) and nearest coarse point (label,
+        color). Returns flat occ, label, col, seen."""
+        r = self.resolution
+        lv = self.level_set
+        ax = np.unique(np.concatenate([np.arange(0, r, 2), [r - 1]]))
+        m = ax.size
+        cX, cY, cZ = np.meshgrid(grid_axes[0][ax], grid_axes[1][ax], grid_axes[2][ax],
+                                 indexing="ij")
+        coarse_pts = np.stack([cX.ravel(), cY.ravel(), cZ.ravel()], -1).astype(np.float32)
+        co, cl, cc, cs = query_points(coarse_pts)
+        co3 = co.reshape(m, m, m)
+
+        corners = np.stack([
+            co3[i:m - 1 + i or None, j:m - 1 + j or None, k:m - 1 + k or None]
+            for i in (0, 1) for j in (0, 1) for k in (0, 1)
+        ])
+        inside = corners > lv
+        sign_change = inside.any(0) != inside.all(0)
+        spread = corners.max(0) - corners.min(0)
+        margin = np.abs(corners - lv).min(0)
+        flagged = sign_change | (margin < spread)
+
+        need = np.zeros((r, r, r), bool)
+        lo_i, hi_i = ax[:-1], ax[1:]
+        for a, b, c in zip(*np.nonzero(flagged)):
+            need[lo_i[a]:hi_i[a] + 1, lo_i[b]:hi_i[b] + 1, lo_i[c]:hi_i[c] + 1] = True
+
+        fc = np.interp(np.arange(r), ax, np.arange(m))
+        i0 = np.minimum(fc.astype(np.int64), m - 2)
+        w1 = fc - i0
+
+        def trilerp(src):
+            out = src
+            for axis in range(3):
+                a = np.take(out, i0, axis=axis)
+                b = np.take(out, i0 + 1, axis=axis)
+                shape = [1, 1, 1]
+                shape[axis] = -1
+                w = w1.reshape(shape)
+                out = a * (1.0 - w) + b * w
+            return out.astype(np.float32)
+
+        occ = trilerp(co3)
+        seen = trilerp(cs.reshape(m, m, m))
+        nn = np.minimum(np.round(fc).astype(np.int64), m - 1)
+        label = cl.reshape(m, m, m)[np.ix_(nn, nn, nn)]
+        col = cc.reshape(m, m, m, 3)[np.ix_(nn, nn, nn)]
+
+        where = np.nonzero(need)
+        if where[0].size:
+            fine_pts = np.stack([grid_axes[0][where[0]], grid_axes[1][where[1]],
+                                 grid_axes[2][where[2]]], -1).astype(np.float32)
+            fo, fl, fcol, fs = query_points(fine_pts)
+            occ[where] = fo
+            label[where] = fl
+            col[where] = fcol
+            seen[where] = fs
+        self.last_timings["refined_share"] = where[0].size / float(r ** 3)
+        return occ.reshape(-1), label.reshape(-1), col.reshape(-1, 3), seen.reshape(-1)
+
+    def _clean(self, verts, faces, seen_grid, lo, spacing):
+        """Drop faces with a vertex no keyframe observed, then small
+        components; compact the vertices."""
+        idx = np.round((verts - lo) / spacing).astype(np.int64)
+        idx = np.clip(idx, 0, self.resolution - 1)
+        vseen = seen_grid[idx[:, 0], idx[:, 1], idx[:, 2]] > 0
+        faces = faces[vseen[faces].all(axis=1)]
+        if self.get_largest or self.small_thresh > 0:
+            faces = self._remove_small_components(verts, faces)
+        used = np.unique(faces)
+        remap = np.full(verts.shape[0], -1, np.int64)
+        remap[used] = np.arange(used.size)
+        return verts[used], remap[faces].astype(np.int32)
+
+    def _remove_small_components(self, verts, faces):
+        if faces.shape[0] == 0:
+            return faces
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import connected_components
+
+        e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+        g = coo_matrix((np.ones(e.shape[0]), (e[:, 0], e[:, 1])),
+                       shape=(verts.shape[0], verts.shape[0]))
+        n_comp, lab = connected_components(g, directed=False)
+        sizes = np.bincount(lab, minlength=n_comp)
+        if self.get_largest:
+            keep_comp = [int(np.argmax(sizes))]
+        else:  # drop components below small_thresh of the largest
+            keep_comp = np.nonzero(sizes >= sizes.max() * self.small_thresh)[0].tolist()
+        return faces[np.isin(lab[faces[:, 0]], keep_comp)]
+
+    # ------------------------------------------------------------------
+    def save_mesh(self, driver, idx: int) -> None:
+        """Driver hook: extract and write ``mesh_{idx}.ply`` (and the
+        semantic and per-class variants)."""
+        mesh = self.extract(driver.params, driver.enc_params, driver.keyframes,
+                            getattr(driver, "class_colors", None),
+                            kf_feats=driver.collect_kf_feats())
+        if mesh["faces"].shape[0] == 0:
+            print(f"mesh_{idx}: empty")
+            return
+        write_mesh(driver.out_dir, idx, mesh, self.color, self.label, self.element)
+
+
+def write_mesh(out_dir: str, idx: int, mesh, color: bool = True, label: bool = True,
+               element: bool = False) -> str:
+    """``mesh_{idx}.ply`` (+ ``_semantic`` with label colors, + ``_part_{c}``
+    per class when ``element``), as dnsjax writes them. Returns the path."""
+    path = os.path.join(out_dir, f"mesh_{idx}.ply")
+    v, f = mesh["vertices"], mesh["faces"]
+    write_ply(path, v, f, colors=mesh.get("colors") if color else None,
+              labels=mesh.get("labels") if label else None)
+    if label and "label_colors" in mesh:
+        write_ply(os.path.join(out_dir, f"mesh_{idx}_semantic.ply"), v, f,
+                  colors=mesh["label_colors"] / 255.0, labels=mesh.get("labels"))
+    if element:
+        labs = mesh.get("labels")
+        for c in np.unique(labs):
+            sel = labs[f].max(1) == c
+            if sel.sum():
+                write_ply(os.path.join(out_dir, f"mesh_{idx}_part_{c}.ply"), v, f[sel],
+                          colors=mesh.get("colors"))
+    print(f"mesh_{idx}.ply saved ({v.shape[0]} verts)")
+    return path

@@ -1,9 +1,10 @@
 """2D feature matching, PyTorch port of dnsjax/models/features.py.
 
 Project sample points into reference views, gather encoder features from
-the half-resolution maps and fuse them with the merge MLP. The slice ports
-the nearest-tap lookup (``feature_taps: 1``); the bilinear 4-tap path is
-still to be ported.
+the half-resolution maps and fuse them with the merge MLP. Both lookups
+are here: the nearest tap (``feature_taps: 1``, the tracker's and mapper's
+setting) and the bilinear 4 taps that dnsjax's full-frame renderer always
+uses.
 """
 
 from __future__ import annotations
@@ -15,6 +16,21 @@ import torch
 from dnsjax_torch.geometry.rays import project_points, world_to_camera
 from dnsjax_torch.geometry.se3 import invert_se3
 from dnsjax_torch.models.decoder import DecoderSpec, merge_apply
+
+
+def _row_gather(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Rows of (H, W, C) at integer (yi, xi), as one flat row gather."""
+    H, W = img.shape[0], img.shape[1]
+    return img.reshape(H * W, img.shape[2])[yi.to(torch.int64) * W + xi.to(torch.int64)]
+
+
+def nearest_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Nearest sample of (H, W, C) at continuous pixel coords, clamped
+    (``torch.round`` rounds half to even, as ``jnp.round`` does)."""
+    H, W = img.shape[0], img.shape[1]
+    xi = torch.clamp(torch.round(x), 0, W - 1).to(torch.int64)
+    yi = torch.clamp(torch.round(y), 0, H - 1).to(torch.int64)
+    return _row_gather(img, yi, xi)
 
 
 def match_features_batched(
@@ -35,15 +51,14 @@ def match_features_batched(
       refer_w2c: (T, R, 4, 4) world-to-camera of each frame's views.
       feats_half: (T, R, Hf, Wf, C) encoder features at half resolution.
       cam: H, W, fx, fy, cx, cy (full-resolution intrinsics).
+      taps: 1 = nearest half-res tap; 4 = bilinear (the reference's
+        upsample + nearest full-res pixel).
     Returns:
       (T, P, hidden_dim). Out-of-frustum or behind-camera samples contribute
       a zeroed pixel feature (but still a PE term) to the view mean.
     """
-    if taps != 1:
-        raise NotImplementedError(
-            "tpu.feature_taps: 4 is not ported yet (ROADMAP.md, Queue 1: "
-            "remaining items, 1)"
-        )
+    if taps not in (1, 4):
+        raise ValueError(f"taps must be 1 or 4, got {taps}")
     H, W = int(cam["H"]), int(cam["W"])
     T, R = refer_w2c.shape[0], refer_w2c.shape[1]
     Hf, Wf, C = feats_half.shape[-3:]
@@ -57,11 +72,28 @@ def match_features_batched(
     # full-res pixel -> half-res coordinate under align_corners upsampling
     gx = u * ((Wf - 1.0) / (W - 1.0))
     gy = v * ((Hf - 1.0) / (H - 1.0))
-    xi = torch.clamp(torch.round(gx), 0, Wf - 1).to(torch.int64)
-    yi = torch.clamp(torch.round(gy), 0, Hf - 1).to(torch.int64)
     flat = feats_half.reshape(T * R * Hf * Wf, C)
     base = (torch.arange(T * R, device=pts_w.device) * (Hf * Wf)).reshape(T, R, 1)
-    code = flat[base + yi * Wf + xi] * mask[..., None]  # (T, R, P, C)
+    if taps == 4:
+        x = torch.clamp(gx, 0.0, Wf - 1.0)
+        y = torch.clamp(gy, 0.0, Hf - 1.0)
+        x0 = torch.floor(x).to(torch.int64)
+        y0 = torch.floor(y).to(torch.int64)
+        x1 = torch.clamp(x0 + 1, max=Wf - 1)
+        y1 = torch.clamp(y0 + 1, max=Hf - 1)
+        fxw = (x - x0)[..., None]
+        fyw = (y - y0)[..., None]
+        code = (
+            flat[base + y0 * Wf + x0] * (1 - fxw) * (1 - fyw)
+            + flat[base + y0 * Wf + x1] * fxw * (1 - fyw)
+            + flat[base + y1 * Wf + x0] * (1 - fxw) * fyw
+            + flat[base + y1 * Wf + x1] * fxw * fyw
+        )
+    else:
+        xi = torch.clamp(torch.round(gx), 0, Wf - 1).to(torch.int64)
+        yi = torch.clamp(torch.round(gy), 0, Hf - 1).to(torch.int64)
+        code = flat[base + yi * Wf + xi]
+    code = code * mask[..., None]  # (T, R, P, C)
 
     refer_o = invert_se3(refer_w2c)[..., :3, 3]  # (T, R, 3)
     rel = pts_w[:, None, :, :] - refer_o[:, :, None, :]

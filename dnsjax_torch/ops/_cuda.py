@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels (``dnsjax_torch/csrc/*.cu``).
 
-The kernels are compiled by ``nvcc`` into one shared library with a plain C
+The kernels are compiled by ``nvcc`` (one process per source, in parallel)
+and linked into one shared library with a plain C
 interface, at first use, into ``dnsjax_torch/_build/`` (git-ignored), keyed
 by a hash of the sources so an edited kernel is rebuilt. The library is
 loaded with ``ctypes``; every entry point takes raw device pointers plus the
@@ -22,7 +23,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("hashgrid.cu", "scatter.cu")
+SOURCES = ("hashgrid.cu", "scatter.cu", "sorted_scatter.cu")
 
 # --fmad=false: the encode's cell arithmetic (x = p*res; frac = x - floor(x))
 # must round at each step exactly as the float32 reference does; a fused
@@ -30,7 +31,7 @@ SOURCES = ("hashgrid.cu", "scatter.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lib = None
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "dnsjax_hash_encode_fwd": (_VP,) * 8 + (_I,) * 6 + (_VP,),
     # idx, vals, out, L, N, R, F, stream
     "dnsjax_scatter_add": (_VP,) * 3 + (_I,) * 4 + (_VP,),
+    # sorted idx, sorted vals, out, M, R, F, stream
+    "dnsjax_sorted_scatter_add": (_VP,) * 3 + (_I,) * 3 + (_VP,),
 }
 
 
@@ -77,16 +80,27 @@ def library() -> ctypes.CDLL:
         if not os.path.exists(so):
             t0 = time.perf_counter()
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(_CSRC, s) for s in SOURCES)]
+            # one nvcc per source, all started together, then one link
+            objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, os.path.join(_CSRC, s)]
+                    for s, o in zip(SOURCES, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for c in cmds]
+            logs = []
+            for cmd, proc in zip(cmds, procs):
+                out, err = proc.communicate()
+                logs.append(out + err)
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + err)
+            cmd = [_nvcc(), "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o", tmp, *objs]
             proc = subprocess.run(cmd, capture_output=True, text=True)
+            for o in objs:
+                os.remove(o)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stderr
-                )
+                raise RuntimeError("nvcc link failed:\n" + " ".join(cmd) + "\n" + proc.stderr)
             os.replace(tmp, so)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
+            build_log = "".join(logs)
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -74,18 +74,16 @@ def mlp_apply_gathered(
     Args:
       stacked: {"w": [(C, in, h), (C, h, out)], "b": [(C, h), (C, out)]}.
       classes: (N,) int class per row; out-of-range ids clamp to [0, C-1],
-        as the reference's ``jnp.take`` does.
-      x: (N, S, in), S > 1 samples per row sharing the row's class.
+        as the reference's S = 1 path does (its S > 1 ``jnp.take`` wraps
+        negative ids and fills NaN for ids >= C: ROADMAP.md, Queue 3).
+      x: (N, S, in), S samples per row sharing the row's class.
     Returns:
       (N, S, out) float32.
     """
-    if x.shape[1] == 1:
-        raise NotImplementedError(
-            "mlp_apply_gathered with S == 1 (mesh queries) is not ported yet "
-            "(ROADMAP.md, Queue 1: remaining items, 2)"
-        )
     C = stacked["w"][0].shape[0]
     cls = torch.clamp(classes.to(torch.int64), 0, C - 1)
+    if x.shape[1] == 1:
+        return _mlp_apply_grouped(stacked, cls, x[:, 0], compute_dtype)[:, None]
     h = _round(x, compute_dtype)
     n = len(stacked["w"])
     for i, (w, b) in enumerate(zip(stacked["w"], stacked["b"])):
@@ -93,3 +91,27 @@ def mlp_apply_gathered(
         if i < n - 1:
             h = _round(torch.relu(h), compute_dtype)
     return h
+
+
+def _mlp_apply_grouped(stacked: Params, cls: torch.Tensor, x: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """S = 1 (mesh and vertex queries): rows grouped by class, one matmul
+    per present class, so no per-row weight copy is made (for the fine MLP
+    that copy would be ~7 KB a row, ~1.9 GB per 262,144-point chunk). Each
+    row meets the same rounded weights as in the per-row path, so the
+    result is the same function as dnsjax's one-hot selection. One host
+    read of the class counts per call."""
+    order = torch.argsort(cls, stable=True)
+    counts = torch.bincount(cls, minlength=stacked["w"][0].shape[0]).tolist()
+    h = _round(x[order], compute_dtype)
+    n = len(stacked["w"])
+    for i, (w, b) in enumerate(zip(stacked["w"], stacked["b"])):
+        parts, a = [], 0
+        for c, m in enumerate(counts):
+            if m:
+                parts.append(h[a:a + m] @ _round(w[c], compute_dtype) + b[c])
+                a += m
+        h = torch.cat(parts) if parts else h.new_zeros((0, w.shape[-1]))
+        if i < n - 1:
+            h = _round(torch.relu(h), compute_dtype)
+    return torch.empty_like(h).index_copy_(0, order, h)

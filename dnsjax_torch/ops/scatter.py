@@ -1,5 +1,6 @@
 """Table-gradient scatter-add: the CUDA kernel's wrapper and its plain twin,
-plus the stochastic bf16 rounding of the ``pallas_sr`` prepass.
+plus the stochastic bf16 rounding of the ``pallas_sr`` prepass, and the
+sorted (deterministic) scatter-add ``sorted_scatter_add``.
 
 Port of dnsjax/ops/scatter.py:dense_matmul_scatter, the per-level
 ``out[l] = zeros(R, F).at[idx[l]].add(vals[l])`` that the TPU ran as the
@@ -7,6 +8,13 @@ one-hot-matmul kernel ``_dense_kernel``. Here it is one float32-atomic
 kernel (``csrc/scatter.cu``); the TPU's VMEM gate, windows and level
 partition have no counterpart. ``sr_bits16`` and ``stochastic_round_bf16``
 are bit-identical to the reference's, so the rounded contributions match.
+
+``sorted_scatter_add`` ports dnsjax/ops/scatter.py:sorted_scatter_add, whose
+TPU kernel ``_kernel`` scattered row-sorted contributions block by block
+through one-hot matmuls. Here the sort stays outside the kernel, as in
+dnsjax, and ``csrc/sorted_scatter.cu`` sums each run of equal rows in a
+fixed order with no atomics, so its result is the same on every launch. It
+is not on any path of the system (dnsjax calls it only from its tests).
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = 0  # kernel launches by scatter_add (the plain twin does not count)
+SORTED_LAUNCHES = 0  # kernel launches by sorted_segment_sum
 _U32 = 0xFFFFFFFF
 
 
@@ -92,3 +101,68 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, R: int) -> torch.Tensor:
     _cuda.check(err, "dnsjax_scatter_add")
     LAUNCHES += 1
     return out
+
+
+def sorted_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor, R: int) -> torch.Tensor:
+    """Plain-torch ``zeros((R, F)).at[idx].add(vals)``: idx (M,) int, vals
+    (M, F) -> (R, F) float32. Rows outside [0, R) are dropped, as in the
+    kernel."""
+    idx = idx.to(torch.int64)
+    ok = (idx >= 0) & (idx < R)
+    out = torch.zeros((R, vals.shape[-1]), dtype=torch.float32, device=vals.device)
+    return out.index_add_(0, idx[ok], vals.to(torch.float32)[ok])
+
+
+def sorted_segment_sum(sidx: torch.Tensor, svals: torch.Tensor, R: int) -> torch.Tensor:
+    """Scatter-add of contributions sorted by row (sidx ascending); same
+    result as ``sorted_scatter_add_plain``.
+
+    CPU tensors take the plain twin. CUDA tensors launch
+    ``dnsjax_sorted_scatter_add`` (csrc/sorted_scatter.cu) and never fall
+    back.
+    """
+    global SORTED_LAUNCHES
+    if sidx.device.type == "cpu" and svals.device.type == "cpu":
+        return sorted_scatter_add_plain(sidx, svals, R)
+    from dnsjax_torch.ops import _cuda
+
+    if sidx.device.type != "cuda" or svals.device != sidx.device:
+        raise ValueError(f"sorted_segment_sum: idx on {sidx.device}, vals on {svals.device}")
+    if sidx.dtype != torch.int32 or svals.dtype != torch.float32:
+        raise TypeError("sorted_segment_sum: idx must be int32 and vals float32")
+    if sidx.dim() != 1 or svals.dim() != 2 or svals.shape[0] != sidx.shape[0]:
+        raise ValueError(
+            f"sorted_segment_sum: idx {tuple(sidx.shape)}, vals {tuple(svals.shape)}, "
+            "expected (M,) and (M, F)"
+        )
+    M, F = svals.shape
+    if M * F >= 2**31 or R * F >= 2**31:
+        raise ValueError("sorted_segment_sum: M*F and R*F must fit int32")
+    sidx = sidx.contiguous()
+    svals = svals.contiguous()
+    out = torch.zeros((R, F), dtype=torch.float32, device=sidx.device)
+    err = _cuda.library().dnsjax_sorted_scatter_add(
+        sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), M, R, F,
+        _cuda.stream_ptr(sidx.device),
+    )
+    _cuda.check(err, "dnsjax_sorted_scatter_add")
+    SORTED_LAUNCHES += 1
+    return out
+
+
+def sorted_scatter_add(idx: torch.Tensor, vals: torch.Tensor, R: int,
+                       use_pallas: bool = True) -> torch.Tensor:
+    """``zeros((R, F)).at[idx].add(vals)`` for idx (M,) int in [0, R) and
+    vals (M, F) float32, as dnsjax's ``sorted_scatter_add``.
+
+    ``use_pallas=True`` sorts the contributions by row (a stable sort, so
+    equal rows keep their order and the sum order is fixed) and reduces each
+    run with ``sorted_segment_sum``; ``use_pallas=False`` takes the plain
+    twin, as the switch selects XLA's scatter in dnsjax. dnsjax's window
+    and fallback conditions have no counterpart: every shape takes the
+    chosen path.
+    """
+    if not use_pallas:
+        return sorted_scatter_add_plain(idx, vals, R)
+    sidx, perm = torch.sort(idx.to(torch.int32), stable=True)
+    return sorted_segment_sum(sidx, vals.to(torch.float32)[perm], R)

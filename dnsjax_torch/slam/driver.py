@@ -8,7 +8,10 @@ retry from the raw previous pose on a loss outlier), and every
 outer mapping calls (overlap-selected, then randomly selected keyframe
 windows). Windows are padded to ``n_joint_optimize_frames`` slots so the
 ray budget splits as in dnsjax. Keyframes are inserted every
-``choose_keyframe_every`` frames; the run ends with ``model.npz``.
+``choose_keyframe_every`` frames; the run ends with ``model.npz``. After a
+keystep, ``mapping.vis_every`` writes a full-frame residual panel and
+``mapping.mesh_every`` a mesh; both read the map and change nothing, and are
+timed apart from tracking and mapping.
 
 Config values the port does not implement raise ``NotImplementedError``
 naming their ROADMAP.md item, rather than silently running something else.
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 
 from dnsjax.data import get_dataset
-from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, tensor_from_camera, tensor_from_camera_np
+from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, invert_se3, tensor_from_camera, tensor_from_camera_np
+from dnsjax_torch.mesh.mesher import Mesher, class_palette
+from dnsjax_torch.mesh.mesher import check_supported as check_mesher_supported
 from dnsjax_torch.models.checkpoint import save_checkpoint
 from dnsjax_torch.models.decoder import DecoderSpec, decoder_param_count, init_decoder_params
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
@@ -61,8 +66,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
         (int(tpu.get("data_parallel", 1)) > 1, "tpu.data_parallel > 1", 4),
         (int(tpu.get("map_dp", 1)) > 1, "tpu.map_dp > 1", 4),
         (bool(tpu.get("mesh_async", False)), "tpu.mesh_async", 4),
-        (int(mp.get("mesh_every", 0)) > 0, "mapping.mesh_every > 0", 2),
-        (int(mp.get("vis_every", 0)) > 0, "mapping.vis_every > 0", 2),
         (int(tpu.get("feature_taps", 4)) != 1, "tpu.feature_taps != 1", 1),
         (str(tr.get("method", "adam")) != "lm", "tracking.method: adam", 1),
         (int(tr.get("lm_patience", 0)) > 0, "tracking.lm_patience > 0", 1),
@@ -72,6 +75,8 @@ def check_supported(cfg: Dict[str, Any]) -> None:
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}, {item})")
+    if int(mp.get("mesh_every", 0)) > 0 and "meshing" in cfg:
+        check_mesher_supported(cfg)
     if int(mp["n_refer_frames"]) != 2:
         raise ValueError(
             f"mapping.n_refer_frames={mp['n_refer_frames']} unsupported; "
@@ -177,7 +182,17 @@ class DNSSLAM:
         self._pre_color: Optional[torch.Tensor] = None
         self.track_times: List[float] = []
         self.map_times: List[float] = []
+        self.vis_times: List[float] = []
+        self.mesh_times: List[float] = []
         self.last_map_aux: Dict[str, float] = {}
+
+        self.vis_every = int(mp.get("vis_every", 0))
+        self.mesh_every = int(mp.get("mesh_every", 0))
+        self._full_renderer = None
+        self.class_colors = class_palette(self.n_class)
+        self.mesher = None
+        if self.mesh_every > 0 and "meshing" in cfg:
+            self.mesher = Mesher(cfg, cam, self.bound_np, self.spec, self.compute_dtype)
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
@@ -201,6 +216,13 @@ class DNSSLAM:
         if slot not in self._kf_feats:
             self._kf_feats[slot] = self._encode(self.keyframes.colors[slot][None])[0]
         return self._kf_feats[slot]
+
+    def collect_kf_feats(self) -> Optional[torch.Tensor]:
+        """(count, Hf, Wf, C) encoder maps of the keyframe store, from the
+        per-slot cache."""
+        if self.keyframes.count == 0:
+            return None
+        return torch.stack([self._kf_feat(s) for s in range(self.keyframes.count)])
 
     def _cur_state(self, cur):
         """Encoder features and class-sorted pixels of the current frame,
@@ -408,6 +430,40 @@ class DNSSLAM:
                          n_keyframes=self.keyframes.count)
 
     # ------------------------------------------------------------------
+    def frame_vis(self, idx: int, cur) -> None:
+        """Render the whole current frame, conditioned on the two newest
+        keyframes and the frame itself, and write the 3x3 residual panel.
+        The z draws come from the driver's generator."""
+        from dnsjax_torch.render.full import make_full_renderer
+        from dnsjax_torch.viz.panels import residual_panel
+
+        t0 = time.perf_counter()
+        if self._full_renderer is None:
+            ds = self.dataset
+            self._full_renderer = make_full_renderer(
+                self.spec, dict(H=ds.H, W=ds.W, fx=ds.fx, fy=ds.fy, cx=ds.cx, cy=ds.cy),
+                self.map_cfg.n_samples, self.map_cfg.n_surface,
+                compute_dtype=self.compute_dtype)
+        kf = self.keyframes
+        refs = [max(kf.count - 2, 0), max(kf.count - 1, 0)]
+        cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
+        refer_c2w = torch.stack([kf.est_c2w[refs[0]], kf.est_c2w[refs[1]], cur_c2w])
+        feats = torch.stack([self._kf_feat(refs[0]), self._kf_feat(refs[1]),
+                             self._cur_state(cur)[0]])
+        color, depth, logits = self._full_renderer(
+            self.params, cur_c2w, cur["depth"], cur["label"], invert_se3(refer_c2w), feats,
+            self.bound, self.gen)
+        residual_panel(idx, self.out_dir, cur["host"]["color"], color.cpu().numpy(),
+                       cur["host"]["depth"], depth.cpu().numpy(), cur["host"]["label"],
+                       logits.argmax(-1).cpu().numpy(), max_label=max(self.n_class, 2))
+        self.vis_times.append(time.perf_counter() - t0)
+
+    def save_mesh(self, idx: int) -> None:
+        t0 = time.perf_counter()
+        self.mesher.save_mesh(self, idx)
+        self.mesh_times.append(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------------
     def _track_once(self, feats, cur, c2w0: np.ndarray) -> np.ndarray:
         t7 = tensor_from_camera_np(c2w0).astype(np.float32)
         t7 = torch.as_tensor(t7, device=self.device)
@@ -511,9 +567,13 @@ class DNSSLAM:
 
             if idx == n - 1 or idx % self.optimize_every == 0:
                 self._keystep(idx, cur)
+                if self.vis_every > 0 and (idx % self.vis_every == 0 or idx <= 1):
+                    self.frame_vis(idx, cur)
                 if (idx % self.keyframe_every == 0 or idx == n - 2) \
                         and idx not in self.keyframes.frame_ids:
                     self._add_keyframe(idx, cur)
+                if self.mesher is not None and idx % self.mesh_every == 0:
+                    self.save_mesh(idx)
                 if self.checkpoint_every > 0 and idx % self.checkpoint_every == 0 and idx > 1:
                     self.save_checkpoint(f"model_{idx}.npz", idx)
             self._pre_color = cur["color"]

@@ -5,7 +5,8 @@ Imports no jax, so it runs on a machine without it:
 Without a card every test skips. Tolerances: forward atol 1e-6 (same bf16
 rows and float32 steps); table gradient 1e-5 of each row's sum of
 contribution magnitudes plus 1e-7, the bound of the float32 atomics'
-summation order.
+summation order; the sorted scatter-add the same bound against its twin,
+and bit-for-bit equality between two launches (it uses no atomics).
 """
 
 import pytest
@@ -66,6 +67,23 @@ def test_table_gradient_kernel_matches_plain(dev, scatter_mode):
     assert bool(((table.grad - ref).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("hot", [False, True])
+def test_sorted_scatter_kernel_matches_plain_and_is_deterministic(dev, hot):
+    g = torch.Generator(device=dev).manual_seed(2)
+    R, M, F = 65536, 200_000, 8
+    hi = 10 if hot else R
+    idx = torch.randint(0, hi, (M,), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.randn((M, F), generator=g, device=dev)
+    before = scatter.SORTED_LAUNCHES
+    got = scatter.sorted_scatter_add(idx, vals, R)
+    again = scatter.sorted_scatter_add(idx, vals, R)
+    assert scatter.SORTED_LAUNCHES == before + 2
+    ref = scatter.sorted_scatter_add_plain(idx, vals, R)
+    bound = 1e-7 + 1e-5 * scatter.sorted_scatter_add_plain(idx, vals.abs(), R)
+    assert bool(((got - ref).abs() <= bound).all())
+    assert torch.equal(got, again)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     spec = _spec("tet", 8)
     table = torch.zeros((3, 4096, 8), device=dev)
@@ -77,3 +95,6 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         scatter.scatter_add(torch.zeros((2, 4), device=dev, dtype=torch.int64),
                             torch.zeros((2, 4, 8), device=dev), 16)
+    with pytest.raises(TypeError):
+        scatter.sorted_segment_sum(torch.zeros((4,), device=dev, dtype=torch.int64),
+                                   torch.zeros((4, 8), device=dev), 16)

@@ -36,8 +36,9 @@ def _cfg(*overrides):
     "tpu.data_parallel=2",
     "tpu.map_dp=2",
     "tpu.mesh_async=true",
-    "mapping.mesh_every=10",
-    "mapping.vis_every=12",
+    "mapping.mesh_every=10,meshing.show_forecast=true",
+    "mapping.mesh_every=10,meshing.get_mask_use_all_frames=true",
+    "mapping.mesh_every=10,meshing.depth_test=true,meshing.use_est_depth=true",
     "tpu.feature_taps=4",
     "tracking.method=adam",
     "tracking.lm_patience=3",
@@ -46,7 +47,15 @@ def _cfg(*overrides):
 ])
 def test_unsupported_config_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdrv.check_supported(_cfg(override))
+        tdrv.check_supported(_cfg(*override.split(",")))
+
+
+def test_shipped_output_options_are_supported():
+    """The shipped vis_every / mesh_every (and the meshing defaults of
+    configs/slam.yaml) pass the guard."""
+    cfg = t_run.load_run_config(CONFIG, 0, ["mapping.mesh_every=50"])
+    assert int(cfg["mapping"]["vis_every"]) > 0
+    tdrv.check_supported(cfg)
 
 
 def test_resume_raises():

@@ -227,13 +227,15 @@ def test_match_features_batched():
         np.r_[1.0, 0.1 * rng.normal(size=3), 0.2 * rng.normal(size=3)]))
         for _ in range(3)]) for _ in range(2)]).astype(np.float32)
     feats = rng.normal(size=(2, 3, 12, 16, 64)).astype(np.float32)
-    ref = jf.match_features_batched(jp, jnp.asarray(pts), jnp.asarray(w2c), jnp.asarray(feats),
-                                    cam, jnp.asarray(bound), jsp, jnp.float32, taps=1)
-    got = tf.match_features_batched(tp, T(pts), T(w2c), T(feats), cam, T(bound), tsp,
-                                    torch.float32, taps=1)
-    _close(got, ref, rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.match_features_batched(tp, T(pts), T(w2c), T(feats), cam, T(bound), tsp, taps=4)
+    for taps in (1, 4):  # nearest half-res tap; bilinear (the full-frame renderer's)
+        ref = jf.match_features_batched(jp, jnp.asarray(pts), jnp.asarray(w2c),
+                                        jnp.asarray(feats), cam, jnp.asarray(bound), jsp,
+                                        jnp.float32, taps=taps)
+        got = tf.match_features_batched(tp, T(pts), T(w2c), T(feats), cam, T(bound), tsp,
+                                        torch.float32, taps=taps)
+        _close(got, ref, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError):
+        tf.match_features_batched(tp, T(pts), T(w2c), T(feats), cam, T(bound), tsp, taps=2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

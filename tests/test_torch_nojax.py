@@ -1,6 +1,7 @@
 """The port never imports jax: in a fresh interpreter, import dnsjax_torch,
-run one hash-encode forward and backward and one mapping iteration on the
-CPU, then check sys.modules."""
+run one hash-encode forward and backward, one mapping iteration, one mesh
+extraction and one full-frame render on the CPU, import what eval_2d and
+cull_mesh use (dnsjax's numpy metrics included), then check sys.modules."""
 
 import os
 import subprocess
@@ -31,6 +32,29 @@ f0 = slam._frame_to_device(slam.dataset[0])
 slam.keyframes.add(f0["host"], f0["host"]["c2w"])
 aux, _ = slam.map_once(0, f0, 1, "overlap", is_first=True)
 assert torch.isfinite(aux["losses"]).all()
+
+from dnsjax_torch.mesh.mesher import Mesher
+from dnsjax_torch.render.full import make_full_renderer
+from dnsjax_torch.geometry.se3 import invert_se3
+
+cfg["meshing"]["resolution"] = 32
+mesher = Mesher(cfg, slam.track_cfg.cam, slam.bound_np, slam.spec, slam.compute_dtype)
+mesh = mesher.extract(slam.params, slam.enc_params, slam.keyframes)
+assert mesh["vertices"].shape[1] == 3
+render = make_full_renderer(slam.spec, slam.track_cfg.cam, 8, 4, compute_dtype=slam.compute_dtype)
+c2w = f0["host"]["c2w"]
+color, depth, logits = render(slam.params, torch.as_tensor(c2w), f0["depth"], f0["label"],
+                              invert_se3(torch.as_tensor(c2w)[None].repeat(3, 1, 1)),
+                              slam._kf_feat(0)[None].repeat(3, 1, 1, 1), slam.bound,
+                              torch.Generator().manual_seed(0))
+assert torch.isfinite(color).all() and torch.isfinite(depth).all()
+
+import dnsjax_torch.cli.cull_mesh, dnsjax_torch.cli.eval_2d, dnsjax_torch.cli.extract_mesh
+from dnsjax.cli.cull_mesh import cull
+from dnsjax.eval.render_metrics import ms_ssim, psnr, ssim
+from dnsjax.eval.semantic import semantic_metrics
+from dnsjax_torch.eval.lpips import lpips
+from dnsjax_torch.viz.panels import residual_panel
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
 print("NOJAX_OK")

@@ -360,11 +360,32 @@ def test_lm_iteration_matches(scene, dtype):
     np.testing.assert_allclose(t_new.numpy(), t7[4:] + delta[4:], rtol=0, atol=1e-6)
 
 
+# The whole LM solve, held by what the damped 7x7 solve determines. J is
+# blind to the quaternion's scale, so A = JtJ + lam diag(JtJ) + 1e-8 I has
+# an eigenvalue ~6e-7 along the unit quaternion q0 of the linearisation
+# point (cond(A) ~ 1e7). The step's component g along q0 is rounding noise
+# over rounding noise: one float32 LAPACK solve differs from another by
+# 0.01-0.06 in g (measured on the float32 case: g ~ -22). After the
+# renormalisation the trial quaternion normalize(q0 + d + g q0) therefore
+# moves along the great circle through q0 and the reference's result, and
+# the rotation with it (5e-4 in R, 1.6e-4 relative in the losses, measured;
+# the same at 1, 2, 4 and 8 threads and between repeats; under 2e-5 in the
+# quaternion on another machine's LAPACK). What the solve does determine:
+# the quaternion's offset
+# from that great circle (measured 8.7e-7 float32, 4.5e-5 bf16) and the
+# translation (1.8e-5; its error comes from the next-smallest eigenvalue,
+# cond ~330). The losses are held exactly where the pose is the same: the
+# port's loss at dnsjax's pose, on the same draws.
+LM_SOLVE_TOL = {"float32": dict(plane=1e-5, T=1e-4, R=5e-3, aux=2e-3),
+                "bfloat16": dict(plane=5e-4, T=2e-3, R=2e-2, aux=1e-2)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_solve_matches_make_track_fn(scene, dtype):
     """A whole one-iteration LM solve, accept/reject and min-loss candidate
-    included, against dnsjax's jitted track program on the same draws."""
-    tol = LM_TOL[dtype]
+    included, against dnsjax's jitted track program on the same draws (see
+    LM_SOLVE_TOL for what the solve determines)."""
+    tol, stol = LM_TOL[dtype], LM_SOLVE_TOL[dtype]
     jcfg, tcfg, f, t7, refer_w2c, enc = _track_setup(scene)
     key = jax.random.PRNGKey(12)
     track = jtrk.make_track_fn(scene["jsp"], jcfg, getattr(jnp, dtype))
@@ -375,11 +396,29 @@ def test_lm_solve_matches_make_track_fn(scene, dtype):
     ref = np.asarray(metrics["packed"])
     draws = [_track_draws(k, jcfg) for k in jax.random.split(key, jcfg.lm_iters + 1)]
     tr = ttrk.Tracker(scene["tsp"], tcfg, getattr(torch, dtype))
-    got = tr.track(_torch_params(scene["jp"]), T_(enc), T_(refer_w2c), T_(f["color"]),
+    params = _torch_params(scene["jp"])
+    got = tr.track(params, T_(enc), T_(refer_w2c), T_(f["color"]),
                    T_(f["depth"]), T_(f["label"]), T_(t7[:4]), T_(t7[4:]),
                    T_(scene["bound"]), None, draws=draws).numpy()
-    np.testing.assert_allclose(got[:7], ref[:7], rtol=0, atol=tol["pose"])
-    np.testing.assert_allclose(got[7:], ref[7:], rtol=tol["aux"])
+    assert not np.allclose(ref[:7], t7), "the reference rejected its step: nothing to compare"
+    # the quaternion lies on the great circle through q0 and dnsjax's result
+    unit = lambda q: q.astype(np.float64) / np.linalg.norm(q)
+    basis, _ = np.linalg.qr(np.stack([unit(t7[:4]), unit(ref[:4])], 1))
+    qg = unit(got[:4])
+    assert np.linalg.norm(qg - basis @ (basis.T @ qg)) <= stol["plane"]
+    np.testing.assert_allclose(got[4:7], ref[4:7], rtol=0, atol=stol["T"])
+    rot = lambda q: np.asarray(quat_to_rotation(jnp.asarray(unit(q), jnp.float32)))
+    np.testing.assert_allclose(rot(got[:4]), rot(ref[:4]), rtol=0, atol=stol["R"])
+    np.testing.assert_allclose(got[7:], ref[7:], rtol=stol["aux"])
+    # at dnsjax's own pose (accepted, so evaluated on the last draws) the
+    # port's packed losses are dnsjax's
+    frame = {"params": params, "enc_feats": T_(enc), "refer_w2c": T_(refer_w2c),
+             "colorf": T_(f["color"]).reshape(-1, 3), "depthf": T_(f["depth"]).reshape(-1),
+             "labelf": T_(f["label"]).reshape(-1), "bound": T_(scene["bound"])}
+    at_ref = torch.stack(tr.eval_loss(T_(ref[:4]), T_(ref[4:7]), frame, draws[-1])).numpy()
+    np.testing.assert_allclose(at_ref, ref[7:], rtol=tol["aux"])
+    if dtype == "bfloat16":  # bf16 boundaries dominate the gauge: unchanged bound
+        np.testing.assert_allclose(got[:7], ref[:7], rtol=0, atol=tol["pose"])
 
 
 def test_pose_init_const_velocity():
