@@ -8,13 +8,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   2. kernels: each CUDA kernel against its plain PyTorch twin on the same
      inputs, at the shapes of the textured scene (4 levels, 2^16 rows, 8
      features, tet; the 1992-ray mapping batch, the 500-ray tracking batch,
-     47 samples each, and a 262,144-point mesh chunk without residuals) and
-     the synthetic scene (8 levels, 2^13 rows, 2 features, tet and
-     trilinear): forward output and residuals, table gradient, position
+     47 samples each, with residuals; without them, the mesh query's chunk
+     of ``meshing.points_batch_size`` points and the full-frame renderer's
+     chunk of 4096 rays x 47 samples) and the synthetic scene (8 levels,
+     2^13 rows, 2 features, tet and trilinear): forward output and residuals, table gradient, position
      gradient and forward-mode tangent; the sorted scatter-add on the
-     textured mapping's table-gradient rows, on 3 * 2^20 uniform rows and on
-     a skewed case, with two launches bit-identical; max errors and median
-     times (CUDA events) of kernel and twin;
+     textured mapping's table-gradient rows, on 3 * 2^20 uniform rows, on a
+     skewed case and on runs that end on its tile edges, with two launches
+     bit-identical; max errors, and times (CUDA events) of kernel, twin
+     and, for the scatters, ``index_add_``, beside each shape's bytes bound
+     (``bound_ms``, ``bound_share``; the encode counts the table rows its
+     points touch);
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
      card (all 40 frames unless --end-frame) with ``mapping.vis_every=20``
      and ``mapping.mesh_every=20``, then ATE RMSE of the written model.npz,
@@ -25,7 +29,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
      encode kernel's launches in each; sanity bounds on the mesh and the
      metrics;
-  5. no JAX in the process.
+  5. no module of jax or of the dnsjax package in the process.
 Prints a JSON line of per-kernel results, then the device line last.
 """
 
@@ -65,28 +69,112 @@ def _median_ms(fn, n: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(fn, n: int = 50) -> float:
+    """Device time of one call of ``fn`` from a cold L2, without the host's
+    time to enqueue it: a CUDA graph of a 128 MB memset (which evicts the
+    50 MB L2) and then the call, replayed ``n`` times between two events,
+    less the same graph without the call."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    per_replay = []
+    for with_fn in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            flush.zero_()
+            if with_fn:
+                fn()
+        g.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        per_replay.append(a.elapsed_time(b) / n)
+        del g
+    return per_replay[0] - per_replay[1]
+
+
 def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def check_kernels(results):
-    """Phase 2. Returns per-kernel dicts {max_abs_err, ms, plain_ms}."""
+# The least time for a function that reads each input byte once and writes
+# each output byte once: H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet).
+# Every kernel here does a few flops per byte, so bytes bound all of them.
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _timed_row(shape, nbytes, fn, plain, library=None):
+    """The kernel's and (where one PyTorch call computes the same function)
+    that call's device time from a cold L2 (``_device_ms``), the kernel's
+    and the plain twin's time per call as seen from the host (median of 20
+    single calls between events; the twin's boolean indexing waits for the
+    host, so it cannot be put in a graph), beside the shape's bytes bound."""
+    ms = _device_ms(fn)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=shape, ms=ms, call_ms=_median_ms(fn), plain_ms=_median_ms(plain),
+               library_ms=_device_ms(library) if library is not None else None,
+               bytes=nbytes, bound_ms=bound_ms, bound_by="bytes", bound_share=bound_ms / ms)
+    print("timing " + json.dumps(row), flush=True)
+    return row
+
+
+def _encode_bytes(spec, N: int, want_res: bool, flat_idx) -> int:
+    """pts 12 B and out L*F*4 B a point; with the residuals also feats
+    L*C*F*4, idx and w L*C*4 each, aux L*3*4; plus, once, each table row
+    that a corner of these points names (``flat_idx``: the twin's flat row
+    ids), F*4 B: the rows no point touches need not be read."""
+    import torch
+
+    L, C, F = spec.n_levels, spec.n_corners, spec.n_features
+    per_point = 12 + 4 * L * F + (4 * L * (C * F + 2 * C + 3) if want_res else 0)
+    return N * per_point + int(torch.unique(flat_idx).numel()) * 4 * F
+
+
+def _scatter_bytes(M: int, F: int, out_rows: int) -> int:
+    """id 4 B and values 4F B a contribution, plus the output once."""
+    return M * (4 + 4 * F) + out_rows * 4 * F
+
+
+def _index_add(rows, vals, out_rows):
+    """The one PyTorch call that computes a scatter-add (the yardstick only:
+    the port never calls it on a CUDA tensor): ``index_add_`` on ids already
+    filtered to [0, out_rows)."""
+    import torch
+
+    ok = (rows >= 0) & (rows < out_rows)
+    ids, v = rows[ok], vals[ok]
+    return lambda: torch.zeros((out_rows, vals.shape[-1]), device=vals.device).index_add_(0, ids, v)
+
+
+def _headline(res, row):
+    """The kernel's line takes the numbers of its main-path shape."""
+    for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share"):
+        res[k] = row[k]
+
+
+def check_kernels(results, plain_shapes):
+    """Phase 2: every kernel against its plain twin; times and bounds at the
+    main path's shapes into ``results``. ``plain_shapes``: (name, points) of
+    the encode's calls without residuals on the output paths."""
     import torch
 
     from dnsjax_torch.ops import gather, hashgrid, scatter
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    textured = dict(n_levels=4, n_features=8, log2_hashmap_size=16, base_resolution=16,
+                    desired_resolution=224, interp="tet", grad_corners=1, gather_bf16=True,
+                    scatter="pallas_sr")
     cases = [
         # (name, spec kwargs, N, timed)
-        ("textured-map", dict(n_levels=4, n_features=8, log2_hashmap_size=16,
-                              base_resolution=16, desired_resolution=224, interp="tet",
-                              grad_corners=1, gather_bf16=True, scatter="pallas_sr"),
-         1992 * 47, True),
-        ("textured-track", dict(n_levels=4, n_features=8, log2_hashmap_size=16,
-                                base_resolution=16, desired_resolution=224, interp="tet",
-                                grad_corners=1, gather_bf16=True, scatter="pallas_sr"),
-         500 * 47, False),
+        ("textured-map", textured, 1992 * 47, True),
+        ("textured-track", textured, 500 * 47, True),
         ("synthetic-tet", dict(n_levels=8, n_features=2, log2_hashmap_size=13,
                                base_resolution=8, desired_resolution=112, interp="tet"),
          999 * 32, False),
@@ -111,9 +199,10 @@ def check_kernels(results):
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"{name} {label}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
             errs[label] = _max_err(a, b)
-        # same bf16 rows and the same float32 steps: at most rounding of the
-        # <= 8-term float32 sum
-        if errs["out"] > 1e-6 or errs["idx"] != 0 or errs["aux"] > 0 or errs["w"] > 1e-6:
+        # same bf16 rows and the same float32 steps: the rows, ids and aux
+        # exact, the <= 8-term float32 sum and the weights within rounding
+        if (errs["out"] > 1e-6 or errs["w"] > 1e-6
+                or errs["feats"] != 0 or errs["idx"] != 0 or errs["aux"] != 0):
             raise AssertionError(f"{name} forward mismatch: {errs}")
         out, feats, idx, w, aux = got
         g = torch.randn(out.shape, generator=gen, device=dev)
@@ -145,38 +234,48 @@ def check_kernels(results):
         if name == "textured-map":
             textured_grad = (li, lv, T)
         if timed:
-            fwd["ms"] = _median_ms(lambda: gather.encode_forward(pts, table, spec, True))
-            fwd["plain_ms"] = _median_ms(lambda: gather.encode_forward_plain(pts, table, spec, True))
-            sca["ms"] = _median_ms(lambda: scatter.scatter_add(li, lv, T))
-            sca["plain_ms"] = _median_ms(lambda: scatter.scatter_add_plain(li, lv, T))
-            print(f"timing {name}: encode fwd {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}), "
-                  f"scatter {sca['ms']:.4f} ms (plain {sca['plain_ms']:.4f})", flush=True)
+            fwd["shapes"].append(_timed_row(
+                f"{name} N={N}", _encode_bytes(spec, N, True, ref[2]),
+                lambda: gather.encode_forward(pts, table, spec, True),
+                lambda: gather.encode_forward_plain(pts, table, spec, True)))
+        if name == "textured-map":
+            flat = torch.where((li >= 0) & (li < T),
+                               li.long() + T * torch.arange(L, device=dev)[:, None], -1)
+            sca["shapes"].append(_timed_row(
+                f"{name} L={L} N={N} F={F}", _scatter_bytes(li.numel(), F, L * T),
+                lambda: scatter.scatter_add(li, lv, T),
+                lambda: scatter.scatter_add_plain(li, lv, T),
+                _index_add(flat.reshape(-1), lv.reshape(-1, F), L * T)))
+    _headline(fwd, fwd["shapes"][0])
+    _headline(sca, sca["shapes"][0])
 
-    # the mesh query's encode: one 262,144-point chunk, S = 1, no residuals
-    spec = hashgrid.HashGridSpec(**cases[0][1])
+    # the output paths' encode without residuals, at their chunk sizes
+    spec = hashgrid.HashGridSpec(**textured)
     table = torch.rand((spec.n_levels, spec.table_size, spec.n_features), generator=gen,
                        device=dev) * 2 - 1
-    pts = torch.rand((262144, 3), generator=gen, device=dev)
-    got = gather.encode_forward(pts, table, spec, False)[0]
-    ref = gather.encode_forward_plain(pts, table, spec, False)[0]
-    err = _max_err(got, ref)
-    if err > 1e-6:
-        raise AssertionError(f"mesh-chunk forward mismatch: {err}")
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
-    fwd["mesh_chunk_ms"] = _median_ms(lambda: gather.encode_forward(pts, table, spec, False))
-    fwd["mesh_chunk_plain_ms"] = _median_ms(
-        lambda: gather.encode_forward_plain(pts, table, spec, False))
-    print(f"timing mesh-chunk (262144 pts, no residuals): encode fwd {fwd['mesh_chunk_ms']:.4f} ms "
-          f"(plain {fwd['mesh_chunk_plain_ms']:.4f})", flush=True)
+    for name, N in plain_shapes:
+        pts = torch.rand((N, 3), generator=gen, device=dev)
+        got = gather.encode_forward(pts, table, spec, False)[0]
+        ref = gather.encode_forward_plain(pts, table, spec, False)[0]
+        err = _max_err(got, ref)
+        if err > 1e-6:
+            raise AssertionError(f"{name} forward mismatch: {err}")
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        flat_idx = gather.encode_forward_plain(pts, table, spec, True)[2]
+        fwd["shapes"].append(_timed_row(
+            f"{name} N={N} no residuals", _encode_bytes(spec, N, False, flat_idx),
+            lambda: gather.encode_forward(pts, table, spec, False),
+            lambda: gather.encode_forward_plain(pts, table, spec, False)))
     check_sorted_scatter(results["sorted_scatter_add"], textured_grad, gen)
 
 
 def check_sorted_scatter(res, textured_grad, gen):
     """The sorted scatter-add: the textured mapping's table-gradient
     contributions flattened to rows (R = L * 2^16), 3 * 2^20 uniform rows into
-    2^18, and a skewed case (10 hot rows). Each row held to 1e-5 of its sum
-    of magnitudes + 1e-7; two launches bit-identical; kernel and twin timed
-    on sorted input, and with the sort against the twin on unsorted input."""
+    2^18, a skewed case (10 hot rows) and runs that end on the kernel's tile
+    edges. Each row held to 1e-5 of its sum of magnitudes + 1e-7; two
+    launches bit-identical; kernel, twin and ``index_add_`` timed on sorted
+    input, and with the sort against the twin on unsorted input."""
     import torch
 
     from dnsjax_torch.ops import scatter
@@ -188,6 +287,9 @@ def check_sorted_scatter(res, textured_grad, gen):
     rows = torch.where(ok, li + T * torch.arange(L, device=dev, dtype=torch.int32)[:, None],
                        torch.full_like(li, -1))
     M3 = 3 * 2 ** 20
+    tile = scatter.sorted_tile()
+    half = torch.arange(M3 // 2, device=dev, dtype=torch.int32)
+    edges = torch.cat([half // tile, M3 // 2 // tile + half // (2 * tile)])  # 1, then 2 tiles a run
     cases = [
         ("textured-table-grad", rows.reshape(-1), lv.reshape(-1, F), L * T),
         ("uniform-3M", torch.randint(0, 2 ** 18, (M3,), generator=gen, device=dev,
@@ -195,6 +297,7 @@ def check_sorted_scatter(res, textured_grad, gen):
          torch.randn((M3, 8), generator=gen, device=dev), 2 ** 18),
         ("skewed-3M", torch.randint(0, 10, (M3,), generator=gen, device=dev, dtype=torch.int32),
          torch.randn((M3, 8), generator=gen, device=dev), 2 ** 18),
+        ("tile-edges-3M", edges, torch.randn((M3, 8), generator=gen, device=dev), 2 ** 18),
     ]
     for name, idx, vals, R in cases:
         got = scatter.sorted_scatter_add(idx, vals, R)
@@ -209,24 +312,39 @@ def check_sorted_scatter(res, textured_grad, gen):
             raise AssertionError(f"sorted scatter {name}: two launches differ")
         sidx, perm = torch.sort(idx, stable=True)
         svals = vals[perm]
-        t = dict(case=name, M=int(idx.numel()), R=R, F=int(vals.shape[1]), max_abs_err=err,
-                 bitwise_repeatable=True,
-                 kernel_sorted_ms=_median_ms(lambda: scatter.sorted_segment_sum(sidx, svals, R)),
-                 plain_sorted_ms=_median_ms(
-                     lambda: scatter.sorted_scatter_add_plain(sidx, svals, R)),
-                 with_sort_ms=_median_ms(lambda: scatter.sorted_scatter_add(idx, vals, R)),
-                 plain_unsorted_ms=_median_ms(
-                     lambda: scatter.sorted_scatter_add_plain(idx, vals, R)))
-        print("sorted scatter " + json.dumps(t), flush=True)
+        M = int(idx.numel())
+        row = _timed_row(f"{name} M={M} R={R} F={F}", _scatter_bytes(M, int(vals.shape[1]), R),
+                         lambda: scatter.sorted_segment_sum(sidx, svals, R),
+                         lambda: scatter.sorted_scatter_add_plain(sidx, svals, R),
+                         _index_add(sidx, svals, R))
+        row.update(max_abs_err=err, bitwise_repeatable=True,
+                   with_sort_ms=_median_ms(lambda: scatter.sorted_scatter_add(idx, vals, R)),
+                   plain_unsorted_ms=_median_ms(
+                       lambda: scatter.sorted_scatter_add_plain(idx, vals, R)))
+        print("sorted scatter " + json.dumps(row), flush=True)
+        res["shapes"].append(row)
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if name == "textured-table-grad":
-            res["ms"], res["plain_ms"] = t["kernel_sorted_ms"], t["plain_sorted_ms"]
-            res["with_sort_ms"] = t["with_sort_ms"]
-            res["plain_unsorted_ms"] = t["plain_unsorted_ms"]
+    _headline(res, res["shapes"][0])
 
 
 CONFIG = os.path.join(ROOT, "configs", "synthetic", "textured.yaml")
 OUT = os.path.join(ROOT, "output", "chip_smoke_textured")
+
+
+def plain_encode_shapes():
+    """(name, points) of the encode's calls without residuals on the output
+    paths of CONFIG: a mesh query chunk (``meshing.points_batch_size``) and
+    a full-frame render chunk (the renderer's rays x samples a ray)."""
+    import inspect
+
+    from dnsjax_torch.config import load_config
+    from dnsjax_torch.render.full import make_full_renderer
+
+    cfg = load_config(CONFIG)
+    rays = inspect.signature(make_full_renderer).parameters["chunk"].default
+    samples = int(cfg["training"]["n_samples_ray"]) + int(cfg["training"]["n_surface_ray"])
+    return [("mesh-chunk", int(cfg["meshing"]["points_batch_size"])),
+            ("render-chunk", rays * samples)]
 
 
 def _reset_counts():
@@ -291,7 +409,7 @@ def run_outputs(slam):
     import numpy as np
 
     from dnsjax_torch.cli import eval_2d, extract_mesh
-    from dnsjax_torch.mesh.host import native_loaded
+    from dnsjax_torch.mesh import native
 
     _reset_counts()
     t0 = time.perf_counter()
@@ -308,7 +426,7 @@ def run_outputs(slam):
                 timings_s={k: tm.get(k) for k in ("encode_views", "morton", "query_dispatch",
                                                   "grid_query", "marching", "clean",
                                                   "vertex_attrs")},
-                native_marching=native_loaded(),
+                native_marching=native.load() is not None,
                 launches=mesh_launches)
     print("extract_mesh " + json.dumps(line), flush=True)
     lo = mesher.mc_bound[:, 0] - 0.05
@@ -398,23 +516,20 @@ def main(argv=None):
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  nvcc: " + line.strip(), flush=True)
 
-    results = {
-        "hash_encode_fwd": dict(name="hash_encode_fwd", route="cuda",
-                                source="dnsjax_torch/csrc/hashgrid.cu",
-                                replaces="dnsjax/ops/gather.py:49", launches=0,
-                                max_abs_err=0.0, ms=None, plain_ms=None),
-        "scatter_add": dict(name="scatter_add", route="cuda",
-                            source="dnsjax_torch/csrc/scatter.cu",
-                            replaces="dnsjax/ops/scatter.py:213", launches=0,
-                            max_abs_err=0.0, ms=None, plain_ms=None),
+    kernels = (
+        ("hash_encode_fwd", "dnsjax_torch/csrc/hashgrid.cu", "dnsjax/ops/gather.py:49"),
+        ("scatter_add", "dnsjax_torch/csrc/scatter.cu", "dnsjax/ops/scatter.py:213"),
         # on no path of the system (dnsjax calls it only from its tests)
-        "sorted_scatter_add": dict(name="sorted_scatter_add", route="cuda",
-                                   source="dnsjax_torch/csrc/sorted_scatter.cu",
-                                   replaces="dnsjax/ops/scatter.py:65", launches=0,
-                                   max_abs_err=0.0, ms=None, plain_ms=None),
-    }
+        ("sorted_scatter_add", "dnsjax_torch/csrc/sorted_scatter.cu",
+         "dnsjax/ops/scatter.py:65"),
+    )
+    results = {name: dict(name=name, route="cuda", source=source, replaces=replaces,
+                          launches=0, max_abs_err=0.0, ms=None, call_ms=None, plain_ms=None,
+                          bound_ms=None, bound_by="bytes", library_ms=None, bound_share=None,
+                          shapes=[])
+               for name, source, replaces in kernels}
     t0 = time.perf_counter()
-    check_kernels(results)
+    check_kernels(results, plain_encode_shapes())
     print(f"phase kernels wall {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     slam, launches = run_slam(args.end_frame)
@@ -430,9 +545,11 @@ def main(argv=None):
         for k, v in counts.items():
             results[k]["launches_by_path"][path] = v
     print(f"phase outputs wall {time.perf_counter() - t0:.2f} s", flush=True)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported by the port")
-    print("no jax in sys.modules", flush=True)
+    imported = sorted(m for m in sys.modules if m in ("jax", "dnsjax")
+                      or m.startswith(("jax.", "jaxlib", "dnsjax.", "_dnsjax_mesh_")))
+    if imported:
+        raise AssertionError(f"the port imported jax or the dnsjax package: {imported}")
+    print("no jax and no dnsjax module in sys.modules", flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ def add_common_args(parser) -> None:
 def load_map(args) -> Dict[str, Any]:
     """Config, output dir, dataset, decoder spec, params, encoder params
     and checkpoint dict, as dnsjax's CLIs build them."""
-    from dnsjax.data import get_dataset
+    from dnsjax_torch.data import get_dataset
     from dnsjax_torch.cli.run import load_run_config
     from dnsjax_torch.models.checkpoint import load_checkpoint, params_from_numpy
     from dnsjax_torch.models.decoder import DecoderSpec

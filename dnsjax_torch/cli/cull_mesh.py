@@ -1,14 +1,35 @@
 """Frustum-cull a mesh by a checkpoint's ground-truth trajectory:
 ``python -m dnsjax_torch.cli.cull_mesh <mesh.ply> <config> --checkpoint
-model.npz [--out PATH]``. Same arguments and output as dnsjax.cli.cull_mesh,
-whose numpy ``cull`` it shares; the PLY files go through dnsjax's writer,
-loaded without jax (``mesh/host.py``)."""
+model.npz [--out PATH]``. Same arguments and output as dnsjax.cli.cull_mesh;
+``cull`` is the port's own copy of its numpy body.
+
+Counterpart of the reference cull_mesh.py:9-79 (used to prepare GT meshes
+for eval_3d): drop faces whose vertices fall outside every camera frustum.
+"""
 
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+
+
+def cull(verts, faces, poses, H, W, fx, fy, cx, cy):
+    w2c = np.linalg.inv(poses)  # (N,4,4)
+    pts = np.concatenate([verts, np.ones_like(verts[:, :1])], -1)  # (V,4)
+    seen = np.zeros(verts.shape[0], bool)
+    for i in range(w2c.shape[0]):
+        pc = (w2c[i] @ pts.T).T[:, :3]
+        depth = -pc[:, 2]
+        u = fx * pc[:, 0] / np.maximum(depth, 1e-6) + cx
+        v = -fy * pc[:, 1] / np.maximum(depth, 1e-6) + cy
+        seen |= (depth > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    keep = seen[faces].all(1)
+    faces = faces[keep]
+    used = np.unique(faces)
+    remap = np.full(verts.shape[0], -1, np.int64)
+    remap[used] = np.arange(used.size)
+    return verts[used], remap[faces].astype(np.int32), used
 
 
 def main(argv=None):
@@ -20,9 +41,8 @@ def main(argv=None):
     parser.add_argument("--out", type=str, default=None)
     args = parser.parse_args(argv)
 
-    from dnsjax.cli.cull_mesh import cull
     from dnsjax_torch.cli.run import load_run_config
-    from dnsjax_torch.mesh.host import read_ply, write_ply
+    from dnsjax_torch.mesh.export import read_ply, write_ply
     from dnsjax_torch.models.checkpoint import load_checkpoint
 
     cam = load_run_config(args.config)["cam"]

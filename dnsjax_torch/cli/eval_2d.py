@@ -40,8 +40,8 @@ def evaluate(argv=None):
     import cv2
     import torch
 
-    from dnsjax.eval.render_metrics import ms_ssim, psnr, ssim
-    from dnsjax.eval.semantic import semantic_metrics
+    from dnsjax_torch.eval.render_metrics import ms_ssim, psnr, ssim
+    from dnsjax_torch.eval.semantic import semantic_metrics
     from dnsjax_torch.eval.lpips import lpips
     from dnsjax_torch.geometry.se3 import invert_se3
     from dnsjax_torch.models.encoder import encode_images

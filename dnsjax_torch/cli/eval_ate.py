@@ -10,7 +10,7 @@ import os
 
 def ate_stats(checkpoint_path: str):
     """Horn-aligned ATE statistics of the frames a ``model.npz`` covers."""
-    from dnsjax.eval.ate import evaluate_ate
+    from dnsjax_torch.eval.ate import evaluate_ate
     from dnsjax_torch.models.checkpoint import load_checkpoint
 
     ckpt = load_checkpoint(checkpoint_path)

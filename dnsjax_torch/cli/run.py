@@ -35,7 +35,7 @@ def apply_overrides(cfg, overrides):
 
 def load_run_config(config_path: str, seed: int = 0, overrides=None, input_dir=None):
     """The merged config dict exactly as ``dnsjax.cli.run`` builds it."""
-    from dnsjax.config import load_config
+    from dnsjax_torch.config import load_config
 
     default = os.path.join(os.path.dirname(config_path), "..", "slam.yaml")
     if not os.path.exists(default):

@@ -52,7 +52,7 @@ def lpips_distance(params: dict, a: np.ndarray, b: np.ndarray) -> float:
 def lpips(gt: np.ndarray, pred: np.ndarray) -> Optional[float]:
     """LPIPS(alex) between two HWC images in [0, 1], with the weights named
     by ``$DNSJAX_LPIPS_NPZ``; None when it is unset, as in dnsjax."""
-    from dnsjax.eval.render_metrics import load_lpips_params
+    from dnsjax_torch.eval.render_metrics import load_lpips_params
 
     path = os.environ.get("DNSJAX_LPIPS_NPZ")
     if not path:

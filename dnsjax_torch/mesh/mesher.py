@@ -18,8 +18,9 @@ Both are exact: every contribution is gated by ``valid`` and by the same
 host buffers with non-blocking copies, one chunk behind the device.
 
 Host code (lattice, Morton order, refinement flags, marching, cleaning,
-vertex attributes) is numpy, as in dnsjax; ``mesh/host.py`` shares dnsjax's
-marching and PLY writer.
+vertex attributes) is numpy, as in dnsjax; marching (``mesh/marching.py``,
+native library first) and the PLY writer (``mesh/export.py``) are the
+port's own copies of dnsjax's.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch
 
 from dnsjax_torch.geometry.rays import project_points, world_to_camera
 from dnsjax_torch.geometry.se3 import invert_se3
-from dnsjax_torch.mesh.host import marching_tetrahedra, write_ply
+from dnsjax_torch.mesh.export import write_ply
+from dnsjax_torch.mesh.marching import marching_tetrahedra
 from dnsjax_torch.models.decoder import DecoderSpec, fine_apply, merge_apply, pos_encode
 from dnsjax_torch.models.encoder import encode_images
 from dnsjax_torch.models.features import _row_gather, nearest_sample

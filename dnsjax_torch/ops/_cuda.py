@@ -45,8 +45,10 @@ _SIGNATURES = {
     "dnsjax_hash_encode_fwd": (_VP,) * 8 + (_I,) * 6 + (_VP,),
     # idx, vals, out, L, N, R, F, stream
     "dnsjax_scatter_add": (_VP,) * 3 + (_I,) * 4 + (_VP,),
-    # sorted idx, sorted vals, out, M, R, F, stream
-    "dnsjax_sorted_scatter_add": (_VP,) * 3 + (_I,) * 3 + (_VP,),
+    # sorted idx, sorted vals, out, scratch, M, R, F, V, stream
+    "dnsjax_sorted_scatter_add": (_VP,) * 4 + (_I,) * 4 + (_VP,),
+    # the sorted kernel's tile (contributions), which sizes its scratch
+    "dnsjax_sorted_tile": (),
 }
 
 

@@ -69,11 +69,15 @@ def encode_forward(pts: torch.Tensor, table: torch.Tensor, spec, want_res: bool)
             f"encode_forward: pts {tuple(pts.shape)}, table {tuple(table.shape)}, "
             f"expected (N, 3) and {(L, T, F)}"
         )
-    if L * T >= 2**31:
-        raise ValueError("encode_forward: L * T must fit int32 row indices")
+    if T & (T - 1):
+        raise ValueError(f"encode_forward: table size {T} is not a power of two")
+    N, C = pts.shape[0], spec.n_corners
+    if N * L * C * F >= 2**31 or L * T * F >= 2**31:
+        raise ValueError("encode_forward: N*L*C*F and L*T*F must fit int32 indices")
     pts = pts.contiguous()
     table = table.contiguous()
-    N = pts.shape[0]
+    if table.data_ptr() % 16:  # the kernel reads rows with 16-byte loads
+        table = table.clone()
     dev = pts.device
     out = torch.empty((N, L * F), dtype=torch.float32, device=dev)
     if want_res:

@@ -12,12 +12,16 @@ are bit-identical to the reference's, so the rounded contributions match.
 ``sorted_scatter_add`` ports dnsjax/ops/scatter.py:sorted_scatter_add, whose
 TPU kernel ``_kernel`` scattered row-sorted contributions block by block
 through one-hot matmuls. Here the sort stays outside the kernel, as in
-dnsjax, and ``csrc/sorted_scatter.cu`` sums each run of equal rows in a
-fixed order with no atomics, so its result is the same on every launch. It
-is not on any path of the system (dnsjax calls it only from its tests).
+dnsjax, and ``csrc/sorted_scatter.cu`` is a reduce-by-key over tiles of
+``sorted_tile()`` contributions, with a second pass for the runs that cross
+a tile edge; it sums in an order fixed by the input and uses no atomics, so
+its result is the same on every launch. It is not on any path of the system
+(dnsjax calls it only from its tests).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -113,13 +117,24 @@ def sorted_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor, R: int) -> t
     return out.index_add_(0, idx[ok], vals.to(torch.float32)[ok])
 
 
+@functools.cache
+def sorted_tile() -> int:
+    """Contributions per warp tile of csrc/sorted_scatter.cu (builds the
+    kernel library on first use)."""
+    from dnsjax_torch.ops import _cuda
+
+    return _cuda.library().dnsjax_sorted_tile()
+
+
 def sorted_segment_sum(sidx: torch.Tensor, svals: torch.Tensor, R: int) -> torch.Tensor:
     """Scatter-add of contributions sorted by row (sidx ascending); same
     result as ``sorted_scatter_add_plain``.
 
     CPU tensors take the plain twin. CUDA tensors launch
     ``dnsjax_sorted_scatter_add`` (csrc/sorted_scatter.cu) and never fall
-    back.
+    back; the kernel spreads a row over at most 32 lanes of 1, 2 or 4
+    floats, so it raises for F > 32 unless F is even (F <= 64) or a
+    multiple of 4 (F <= 128). M = 0 launches nothing.
     """
     global SORTED_LAUNCHES
     if sidx.device.type == "cpu" and svals.device.type == "cpu":
@@ -141,8 +156,16 @@ def sorted_segment_sum(sidx: torch.Tensor, svals: torch.Tensor, R: int) -> torch
     sidx = sidx.contiguous()
     svals = svals.contiguous()
     out = torch.zeros((R, F), dtype=torch.float32, device=sidx.device)
+    if M == 0:
+        return out
+    # V floats per vector load: 16-byte loads where the rows allow them
+    V = next(v for v in (4, 2, 1) if F % v == 0 and svals.data_ptr() % (4 * v) == 0)
+    if F // V > 32:
+        raise ValueError(f"sorted_segment_sum: F={F} needs more than 32 lanes per row")
+    n_tiles = -(-M // sorted_tile())
+    part = torch.empty((n_tiles, 2, F), dtype=torch.float32, device=sidx.device)
     err = _cuda.library().dnsjax_sorted_scatter_add(
-        sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), M, R, F,
+        sidx.data_ptr(), svals.data_ptr(), out.data_ptr(), part.data_ptr(), M, R, F, V,
         _cuda.stream_ptr(sidx.device),
     )
     _cuda.check(err, "dnsjax_sorted_scatter_add")

@@ -27,7 +27,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from dnsjax.data import get_dataset
+from dnsjax_torch.data import get_dataset
 from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, invert_se3, tensor_from_camera, tensor_from_camera_np
 from dnsjax_torch.mesh.mesher import Mesher, class_palette
 from dnsjax_torch.mesh.mesher import check_supported as check_mesher_supported

@@ -2,12 +2,15 @@
 
 Imports no jax, so it runs on a machine without it:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider``.
-Without a card every test skips. Tolerances: forward atol 1e-6 (same bf16
-rows and float32 steps); table gradient 1e-5 of each row's sum of
+Without a card every test skips. Tolerances: forward output and weights
+atol 1e-6 (same bf16 rows and float32 steps), per-corner rows, ids and aux
+exact; table gradient 1e-5 of each row's sum of
 contribution magnitudes plus 1e-7, the bound of the float32 atomics'
 summation order; the sorted scatter-add the same bound against its twin,
 and bit-for-bit equality between two launches (it uses no atomics).
 """
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -31,8 +34,12 @@ def _spec(interp, F, **kw):
 
 
 @pytest.mark.parametrize("interp", ["tet", "trilinear"])
-@pytest.mark.parametrize("F", [2, 8])
+@pytest.mark.parametrize("F", [2, 8, 16])
 def test_encode_forward_kernel_matches_plain(dev, interp, F):
+    """Level 0 (res 4, 125 vertices) is dense and level 2 (res 40) hashed in
+    the 4096-row table; 5000 points * 3 levels * C corners is no multiple of
+    the 256-thread block. out and w within 1e-6, feats, idx and aux exact;
+    without residuals the same out."""
     spec = _spec(interp, F)
     g = torch.Generator(device=dev).manual_seed(0)
     table = torch.rand((3, 4096, F), generator=g, device=dev) * 2 - 1
@@ -41,11 +48,15 @@ def test_encode_forward_kernel_matches_plain(dev, interp, F):
     got = gather.encode_forward(pts, table, spec, True)
     assert gather.LAUNCHES == before + 1
     ref = gather.encode_forward_plain(pts, table, spec, True)
+    bare = gather.encode_forward(pts, table, spec, False)[0]
     torch.cuda.synchronize()
-    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-6)
-    for a, b in zip(got[1:], ref[1:]):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    for label, a, b in zip(("out", "feats", "idx", "w", "aux"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, label
+        if label in ("out", "w"):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=label)
+        else:
+            assert torch.equal(a, b), label
+    assert torch.equal(bare, got[0])
 
 
 @pytest.mark.parametrize("scatter_mode", ["pallas_sr", "xla"])
@@ -84,6 +95,44 @@ def test_sorted_scatter_kernel_matches_plain_and_is_deterministic(dev, hot):
     assert torch.equal(got, again)
 
 
+def _sorted_case(case, F, g, dev):
+    """Sorted ids for the tile cases of csrc/sorted_scatter.cu."""
+    T = scatter.sorted_tile()
+    if case == "tile-edges":  # runs of one and of two tiles end on tile edges
+        idx = torch.cat([torch.arange(6).repeat_interleave(T),
+                         6 + torch.arange(3).repeat_interleave(2 * T)])
+    elif case == "one-row":  # one row spans every tile, the last one ragged
+        idx = torch.full((7 * T + 5,), 11)
+    elif case == "ragged":  # M not a multiple of the tile, short random runs
+        idx = torch.randint(0, 300, (5 * T + 77,), generator=g, device=dev).cpu()
+    elif case == "out-of-range":  # dropped ids at both ends of the sorted order
+        idx = torch.cat([torch.full((T + 3,), -2),
+                         torch.randint(0, 40, (3 * T,), generator=g, device=dev).cpu(),
+                         torch.full((2 * T - 1,), 64)])
+    else:  # "empty"
+        idx = torch.zeros((0,), dtype=torch.int64)
+    idx = torch.sort(idx.to(torch.int32)).values.to(dev)
+    vals = torch.randn((idx.numel(), F), generator=g, device=dev)
+    return idx, vals, 64
+
+
+@pytest.mark.parametrize("F", [2, 8, 16])
+@pytest.mark.parametrize("case", ["tile-edges", "one-row", "ragged", "out-of-range", "empty"])
+def test_sorted_segment_sum_tiles(dev, case, F):
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx, vals, R = _sorted_case(case, F, g, dev)
+    before = scatter.SORTED_LAUNCHES
+    got = scatter.sorted_segment_sum(idx, vals, R)
+    again = scatter.sorted_segment_sum(idx, vals, R)
+    assert scatter.SORTED_LAUNCHES == before + (2 if idx.numel() else 0)
+    ref = scatter.sorted_scatter_add_plain(idx, vals, R)
+    bound = 1e-7 + 1e-5 * scatter.sorted_scatter_add_plain(idx, vals.abs(), R)
+    torch.cuda.synchronize()
+    assert got.shape == (R, F) and got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= bound).all())
+    assert torch.equal(got, again)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     spec = _spec("tet", 8)
     table = torch.zeros((3, 4096, 8), device=dev)
@@ -98,3 +147,13 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         scatter.sorted_segment_sum(torch.zeros((4,), device=dev, dtype=torch.int64),
                                    torch.zeros((4, 8), device=dev), 16)
+    # the kernel masks rows with T - 1: a table size that is no power of two
+    odd = SimpleNamespace(n_levels=3, table_size=3000, n_features=8, n_corners=4,
+                          interp="tet", gather_bf16=True,
+                          level_resolutions=spec.level_resolutions)
+    with pytest.raises(ValueError):
+        gather.encode_forward(torch.zeros((4, 3), device=dev),
+                              torch.zeros((3, 3000, 8), device=dev), odd, False)
+    with pytest.raises(ValueError):  # 33 odd features need 33 lanes a row
+        scatter.sorted_segment_sum(torch.zeros((4,), device=dev, dtype=torch.int32),
+                                   torch.zeros((4, 33), device=dev), 16)

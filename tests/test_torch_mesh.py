@@ -29,7 +29,8 @@ from dnsjax.models import features as jf
 from dnsjax.models.encoder import encode_images, init_encoder_params
 from dnsjax.ops import mlp as jm
 from dnsjax.slam.keyframes import KeyframeStore as JKeyframes
-from dnsjax_torch.mesh import host as thost
+from dnsjax_torch.mesh import marching as tmarch
+from dnsjax_torch.mesh import native as tnative
 from dnsjax_torch.mesh import mesher as tmesher
 from dnsjax_torch.models import checkpoint as tck
 from dnsjax_torch.models import decoder as td
@@ -257,13 +258,13 @@ def test_marching_fallback_matches_dnsjax(monkeypatch):
     X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
     vals = 1.0 - np.sqrt(X ** 2 + 0.7 * Y ** 2 + Z ** 2)
     args = (vals, 0.0, (-1.3,) * 3, (ax[1] - ax[0],) * 3)
-    native = thost.marching_tetrahedra(*args) if thost.native_loaded() else None
+    native = tmarch.marching_tetrahedra(*args) if tnative.load() is not None else None
     monkeypatch.setattr(jnative, "_LIB", None)
     monkeypatch.setattr(jnative, "_TRIED", True)
-    monkeypatch.setattr(thost.native, "_LIB", None)
-    monkeypatch.setattr(thost.native, "_TRIED", True)
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_TRIED", True)
     ref = jmarch.marching_tetrahedra(*args)
-    got = thost.marching_tetrahedra(*args)
+    got = tmarch.marching_tetrahedra(*args)
     assert ref[1].shape[0] > 500
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)

@@ -1,7 +1,8 @@
-"""The port never imports jax: in a fresh interpreter, import dnsjax_torch,
-run one hash-encode forward and backward, one mapping iteration, one mesh
-extraction and one full-frame render on the CPU, import what eval_2d and
-cull_mesh use (dnsjax's numpy metrics included), then check sys.modules."""
+"""The port imports neither jax nor anything of the dnsjax package: in a
+fresh interpreter, import dnsjax_torch, run one hash-encode forward and
+backward, one mapping iteration, one mesh extraction and one full-frame
+render on the CPU, import what eval_ate, eval_2d and cull_mesh use (the
+port's own numpy metrics, cull and PLY code), then check sys.modules."""
 
 import os
 import subprocess
@@ -50,13 +51,19 @@ color, depth, logits = render(slam.params, torch.as_tensor(c2w), f0["depth"], f0
 assert torch.isfinite(color).all() and torch.isfinite(depth).all()
 
 import dnsjax_torch.cli.cull_mesh, dnsjax_torch.cli.eval_2d, dnsjax_torch.cli.extract_mesh
-from dnsjax.cli.cull_mesh import cull
-from dnsjax.eval.render_metrics import ms_ssim, psnr, ssim
-from dnsjax.eval.semantic import semantic_metrics
+import dnsjax_torch.cli.eval_ate
+from dnsjax_torch.cli.cull_mesh import cull
+from dnsjax_torch.eval.ate import evaluate_ate
+from dnsjax_torch.eval.render_metrics import load_lpips_params, ms_ssim, psnr, ssim
+from dnsjax_torch.eval.semantic import semantic_metrics
 from dnsjax_torch.eval.lpips import lpips
+from dnsjax_torch.mesh.export import read_ply, write_ply
 from dnsjax_torch.viz.panels import residual_panel
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
+ref_mods = sorted(m for m in sys.modules
+                  if m == "dnsjax" or m.startswith(("dnsjax.", "_dnsjax_mesh_")))
+assert not ref_mods, ref_mods
 print("NOJAX_OK")
 """
 

@@ -16,7 +16,7 @@ from dnsjax_torch.cli import cull_mesh as t_cull
 from dnsjax_torch.cli import eval_2d as t_eval_2d
 from dnsjax_torch.cli import extract_mesh as t_extract
 from dnsjax_torch.cli import run as t_run
-from dnsjax_torch.mesh.host import read_ply
+from dnsjax_torch.mesh.export import read_ply
 
 torch.set_num_threads(1)
 CONFIG = "configs/synthetic/synthetic.yaml"
