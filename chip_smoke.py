@@ -11,12 +11,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      47 samples each, with residuals; without them, the mesh query's chunk
      of ``meshing.points_batch_size`` points and the full-frame renderer's
      chunk of 4096 rays x 47 samples) and the synthetic scene (8 levels,
-     2^13 rows, 2 features, tet and trilinear): forward output and residuals, table gradient, position
-     gradient and forward-mode tangent; the sorted scatter-add on the
-     textured mapping's table-gradient rows, on 3 * 2^20 uniform rows, on a
-     skewed case and on runs that end on its tile edges, with two launches
-     bit-identical; max errors, and times (CUDA events) of kernel, twin
-     and, for the scatters, ``index_add_``, beside each shape's bytes bound
+     2^13 rows, 2 features, tet and trilinear): forward output and
+     residuals, position gradient and forward-mode tangent; the fused table
+     gradient against ``table_grad_plain`` in each case's mode and in the
+     other value modes, one corner and all corners, and its values-as-given
+     mode against ``scatter_add_plain``, timed at the mapping shape on
+     uniform and on ray-shaped points beside the torch prepass it replaces,
+     with a profiler count of each path's device kernels; the sorted
+     scatter-add on the textured mapping's table-gradient rows, on 3 * 2^20
+     uniform rows, on a skewed case and on runs that end on its tile edges,
+     with two launches bit-identical; max errors, and times (CUDA events)
+     of kernel, twin and, for the scatters, ``index_add_``, beside each
+     shape's bytes bound
      (``bound_ms``, ``bound_share``; the encode counts the table rows its
      points touch);
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
@@ -24,7 +30,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and ``mapping.mesh_every=20``, then ATE RMSE of the written model.npz,
      last keystep PSNR, the hooks' walls and the kernels' launch counts in
      that run; then a torch.profiler breakdown of one mapping call and one
-     tracked frame;
+     tracked frame, with the port's kernels' device time on the run's data;
   4. outputs: ``dnsjax_torch.cli.extract_mesh --resolution 256`` and
      ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
      encode kernel's launches in each; sanity bounds on the mesh and the
@@ -36,6 +42,7 @@ Prints a JSON line of per-kernel results, then the device line last.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -158,6 +165,113 @@ def _headline(res, row):
         res[k] = row[k]
 
 
+def _check_table_grad(name, spec, idx, w, g) -> float:
+    """The fused table-gradient kernel against ``table_grad_plain`` on the
+    same residuals. Reordering a float32 sum moves it by at most
+    ~n * eps * sum|v|, so each row is held to 1e-7 + 1e-5 of its sum of
+    contribution magnitudes; a corner drawn differently or a flipped bf16
+    rounding (2^-8 of a value) breaks that bound. Returns the max error."""
+    import torch
+
+    from dnsjax_torch.ops import scatter
+
+    got = scatter.table_grad(spec, idx, w, g)
+    ref = scatter.table_grad_plain(spec, idx, w, g)
+    li, lv = scatter.table_grad_inputs(spec, idx, w, g)
+    given = scatter.scatter_add(li, lv, spec.table_size)  # the values-as-given mode
+    bound = 1e-7 + 1e-5 * scatter.scatter_add_plain(li, lv.abs(), spec.table_size)
+    torch.cuda.synchronize()
+    err = max(_max_err(got, ref), _max_err(given, ref))
+    mode = f"{spec.scatter} grad_corners={spec.grad_corners}"
+    for out in (got, given):
+        if out.shape != ref.shape or not bool(((out - ref).abs() <= bound).all()):
+            raise AssertionError(f"{name} table gradient ({mode}) mismatch: max err {err}")
+    print("table grad check " + json.dumps(dict(case=name, mode=mode, err=err)), flush=True)
+    return err
+
+
+def _table_grad_bytes(N: int, L: int, C: int, F: int, T: int) -> int:
+    """idx and w 4 B a corner, g 4F B a (point, level), the table once."""
+    return N * L * (8 * C + 4 * F) + L * T * F * 4
+
+
+def _kernels_of(fn):
+    """(device kernels, device ms) of one call of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                 for e in events)
+    return sum(e.count for e in events), dev_us / 1e3
+
+
+def _ray_points(gen, rays: int, samples: int):
+    """Points shaped like a mapping batch in the unit cube: ``rays`` rays
+    from near the centre, each with samples - 15 stratified samples up to
+    1.2x its depth and 15 within ~0.01 of its surface, sorted along the ray,
+    so consecutive points share the cells of the dense levels."""
+    import torch
+
+    dev = gen.device
+    o = 0.5 + (torch.rand((rays, 1, 3), generator=gen, device=dev) - 0.5) * 0.2
+    d = torch.randn((rays, 1, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    depth = 0.15 + 0.3 * torch.rand((rays, 1), generator=gen, device=dev)
+    ns = samples - 15
+    strat = (torch.arange(ns, device=dev) + torch.rand((rays, ns), generator=gen, device=dev)) / ns
+    z = torch.cat([strat * depth * 1.2,
+                   depth + 0.01 * torch.randn((rays, 15), generator=gen, device=dev)], 1)
+    return (o + d * torch.sort(z, 1).values[..., None]).reshape(rays * samples, 3)
+
+
+def _time_table_grad(name, spec, idx, w, g):
+    """The fused kernel at the mapping shape: device time from a cold L2 (the
+    zeroed table included), time per call, the plain twin, the prepass as
+    torch ops followed by ``scatter_add`` (the path before the fusion),
+    ``index_add_`` on the rounded contributions, and the bound of the fused
+    inputs; then a profiler line of one table gradient by each path."""
+    import torch
+
+    from dnsjax_torch.ops import scatter
+
+    N, L, C = idx.shape
+    T, F = spec.table_size, spec.n_features
+    li, lv = scatter.table_grad_inputs(spec, idx, w, g)
+    flat = torch.where((li >= 0) & (li < T),
+                       li.long() + T * torch.arange(L, device=li.device)[:, None], -1)
+    fused = lambda: scatter.table_grad(spec, idx, w, g)
+    unfused = lambda: scatter.scatter_add(*scatter.table_grad_inputs(spec, idx, w, g), T)
+    row = _timed_row(f"{name} L={L} N={N} C={C} F={F}", _table_grad_bytes(N, L, C, F, T),
+                     fused, lambda: scatter.table_grad_plain(spec, idx, w, g),
+                     _index_add(flat.reshape(-1), lv.reshape(-1, F), L * T))
+    # where the time goes: the zeroed table alone, and the same reductions
+    # from the rounded contributions (13.5 MB of inputs at the mapping shape
+    # against the residuals' 24 MB); and torch.cumsum of the weights, which
+    # the torch prepass ran for the cdf until it added in corner order
+    row.update(unfused_ms=_device_ms(unfused), unfused_call_ms=_median_ms(unfused),
+               memset_ms=_device_ms(lambda: torch.zeros((L, T, F), device=li.device)),
+               given_ms=_device_ms(lambda: scatter.scatter_add(li, lv, T)),
+               cumsum_ms=_device_ms(lambda: torch.cumsum(w, -1)))
+    print("timing " + json.dumps({k: row[k] for k in ("shape", "unfused_ms", "unfused_call_ms",
+                                                      "memset_ms", "given_ms", "cumsum_ms")}),
+          flush=True)
+    for path, fn in (("fused", fused), ("unfused", unfused)):
+        kernels, dev_ms = _kernels_of(fn)
+        row[f"{path}_kernels"] = kernels
+        print("profile " + json.dumps(dict(phase=f"table_grad {path}", shape=row["shape"],
+                                           device_kernels=kernels, device_ms=dev_ms)),
+              flush=True)
+    if row["fused_kernels"] > 2:
+        raise AssertionError(f"one fused table gradient ran {row['fused_kernels']} kernels")
+    return row
+
+
 def check_kernels(results, plain_shapes):
     """Phase 2: every kernel against its plain twin; times and bounds at the
     main path's shapes into ``results``. ``plain_shapes``: (name, points) of
@@ -172,20 +286,22 @@ def check_kernels(results, plain_shapes):
                     desired_resolution=224, interp="tet", grad_corners=1, gather_bf16=True,
                     scatter="pallas_sr")
     cases = [
-        # (name, spec kwargs, N, timed)
-        ("textured-map", textured, 1992 * 47, True),
-        ("textured-track", textured, 500 * 47, True),
+        # (name, spec kwargs, N, timed, table-gradient variants: spec changes)
+        ("textured-map", textured, 1992 * 47, True, []),
+        ("textured-track", textured, 500 * 47, True, []),
         ("synthetic-tet", dict(n_levels=8, n_features=2, log2_hashmap_size=13,
-                               base_resolution=8, desired_resolution=112, interp="tet"),
-         999 * 32, False),
+                               base_resolution=8, desired_resolution=112, interp="tet",
+                               grad_corners=1, scatter="pallas_sr"),
+         999 * 32, False, [dict(scatter="pallas")]),
         ("synthetic-trilinear", dict(n_levels=8, n_features=2, log2_hashmap_size=13,
                                      base_resolution=8, desired_resolution=112),
-         999 * 32, False),
+         999 * 32, False, [dict(scatter="pallas_sr"), dict(scatter="pallas_split",
+                                                          grad_corners=1)]),
     ]
     fwd = results["hash_encode_fwd"]
     sca = results["scatter_add"]
     textured_grad = None
-    for name, kw, N, timed in cases:
+    for name, kw, N, timed, variants in cases:
         spec = hashgrid.HashGridSpec(**kw)
         L, T, F = spec.n_levels, spec.table_size, spec.n_features
         table = torch.rand((L, T, F), generator=gen, device=dev) * 2 - 1
@@ -213,39 +329,36 @@ def check_kernels(results, plain_shapes):
         dfrac = hashgrid._position_dfrac(spec, feats, aux)
         dfrac_ref = hashgrid._position_dfrac(spec, ref[1], ref[4])
         e_jvp = _max_err(dfrac, dfrac_ref)
-        # table gradient: kernel scatter vs plain scatter on the same
-        # (stochastically rounded) contributions; atomics reorder the sums
-        li, lv = hashgrid._table_grad_inputs(spec, idx, w, gl)
-        d_tab = scatter.scatter_add(li, lv, T)
-        d_tab_ref = scatter.scatter_add_plain(li, lv, T)
-        torch.cuda.synchronize()
-        e_tab = _max_err(d_tab, d_tab_ref)
-        # reordering a float32 sum moves it by at most ~n * eps * sum|v|: each
-        # row is held to 1e-5 of its sum of contribution magnitudes
-        tab_bound = 1e-7 + 1e-5 * scatter.scatter_add_plain(li, lv.abs(), T)
-        tab_ok = bool(((d_tab - d_tab_ref).abs() <= tab_bound).all())
-        if e_pos > 1e-4 * max(1.0, float(d_pts_ref.abs().max())) or e_jvp > 1e-6 or not tab_ok:
-            raise AssertionError(f"{name} backward mismatch: pos {e_pos} jvp {e_jvp} table {e_tab}")
+        # table gradient: the fused kernel against its plain twin on the same
+        # residuals, in the case's own mode and in the variants' modes
+        e_tab = 0.0
+        for variant in [spec] + [dataclasses.replace(spec, **v) for v in variants]:
+            e_tab = max(e_tab, _check_table_grad(name, variant, idx, w, gl))
+        if e_pos > 1e-4 * max(1.0, float(d_pts_ref.abs().max())) or e_jvp > 1e-6:
+            raise AssertionError(f"{name} backward mismatch: pos {e_pos} jvp {e_jvp}")
         line = dict(case=name, N=N, fwd_err=errs["out"], table_grad_err=e_tab,
                     pos_grad_err=e_pos, jvp_err=e_jvp)
         print("kernel check " + json.dumps(line), flush=True)
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["out"], errs["w"])
         sca["max_abs_err"] = max(sca["max_abs_err"], e_tab)
-        if name == "textured-map":
-            textured_grad = (li, lv, T)
         if timed:
             fwd["shapes"].append(_timed_row(
                 f"{name} N={N}", _encode_bytes(spec, N, True, ref[2]),
                 lambda: gather.encode_forward(pts, table, spec, True),
                 lambda: gather.encode_forward_plain(pts, table, spec, True)))
         if name == "textured-map":
-            flat = torch.where((li >= 0) & (li < T),
-                               li.long() + T * torch.arange(L, device=dev)[:, None], -1)
-            sca["shapes"].append(_timed_row(
-                f"{name} L={L} N={N} F={F}", _scatter_bytes(li.numel(), F, L * T),
-                lambda: scatter.scatter_add(li, lv, T),
-                lambda: scatter.scatter_add_plain(li, lv, T),
-                _index_add(flat.reshape(-1), lv.reshape(-1, F), L * T)))
+            textured_grad = scatter.table_grad_inputs(spec, idx, w, gl) + (T,)
+            sca["shapes"].append(_time_table_grad(name, spec, idx, w, gl))
+    # the table gradient again at the mapping shape, on ray-shaped points
+    spec = hashgrid.HashGridSpec(**textured)
+    L, T, F = spec.n_levels, spec.table_size, spec.n_features
+    table = torch.rand((L, T, F), generator=gen, device=dev) * 2 - 1
+    pts = _ray_points(gen, 1992, 47)
+    _, _, idx, w, _ = gather.encode_forward(pts, table, spec, True)
+    gl = torch.randn((pts.shape[0], L, F), generator=gen, device=dev)
+    sca["max_abs_err"] = max(sca["max_abs_err"],
+                             _check_table_grad("textured-map rays", spec, idx, w, gl))
+    sca["shapes"].append(_time_table_grad("textured-map rays", spec, idx, w, gl))
     _headline(fwd, fwd["shapes"][0])
     _headline(sca, sca["shapes"][0])
 
@@ -479,10 +592,14 @@ def profile_slam(slam, n_iters: int = 20):
         dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
         dev_ms = sum(dev_us(e) for e in events) / 1e3
         top = sorted(events, key=lambda e: -dev_us(e))[:12]
+        # the port's own kernels on the run's data: device ms, launches
+        ours = {k: [sum(dev_us(e) for e in events if k in e.key) / 1e3,
+                    sum(e.count for e in events if k in e.key)]
+                for k in ("hash_encode_fwd_kernel", "table_grad_kernel")}
         print("profile " + json.dumps(dict(
             phase=name, iters=n_iters if name == "keystep_call" else 1, wall_ms=wall_ms,
             device_ms=dev_ms, device_busy_share=dev_ms / wall_ms,
-            kernel_launches=sum(e.count for e in events),
+            kernel_launches=sum(e.count for e in events), port_kernels=ours,
             top=[(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in top],
         )), flush=True)
 

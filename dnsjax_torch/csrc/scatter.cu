@@ -1,45 +1,258 @@
-// Per-level scatter-add of table-gradient contributions:
-//   out[l] = zeros(R, F).at[idx[l]].add(vals[l])
+// Hash-grid table gradient, fused: corner draw, value prepass and per-level
+// scatter-add in one kernel.
+//   out[l] = zeros(T, F).at[row].add(value)        out (L, T, F) float32
 //
-// Replaces the Pallas TPU kernel dnsjax/ops/scatter.py:_dense_kernel (the
-// hash-encode backward of scatter: pallas_sr / pallas / pallas_split). The
-// TPU kernel kept the packed gradient table VMEM-resident and turned each
-// contribution block into a one-hot MXU matmul over row windows; the H100
-// needs none of that (no VMEM gate, no windows, no level partition).
+// Replaces the Pallas TPU kernel dnsjax/ops/scatter.py:_dense_kernel and the
+// prepass that XLA fused in front of it in dnsjax/ops/hashgrid.py:
+// _hash_encode_bwd: the stochastic corner (_table_grad_contribs), the level
+// offset stripped off the flat row ids, and the value rounding (sr_bits16 +
+// stochastic_round_bf16 for pallas_sr, nearest bf16 for pallas, float32 for
+// pallas_split and xla). The TPU kernel kept the packed gradient table
+// VMEM-resident and turned each contribution block into a one-hot MXU
+// matmul over row windows; the H100 needs none of that (no VMEM gate, no
+// windows, no level partition), and running the prepass as separate torch
+// ops cost ~56 launches and ~1.25 GB of int64 traffic a backward, so it
+// lives here.
 //
-// What bounds it on the H100: float32 atomics. One thread owns one
-// (contribution, feature) and issues one atomicAdd; neighbouring threads add
-// neighbouring features of the same row, so a warp's atomics hit 32-byte
-// row segments. The slice's (4 x 2^16 x 8) float32 gradient table is 8 MiB and
-// stays in L2, where the atomics resolve; collisions on a hot row serialize
-// there. Contributions arrive already rounded as the config asks (stochastic
-// bf16, nearest bf16, or unrounded): the value prepass runs before this
-// kernel, so the result equals the TPU kernel's up to summation order.
-// Rows outside [0, R) are dropped, as an XLA scatter drops them.
+// Inputs are the encode's residuals and the cotangent: idx (N, L, C) int32
+// flat rows carrying the level offset l*T, w (N, L, C) float32, g (N, L, F)
+// float32. Per (n, l) (one sampled corner) or per (n, l, c) (all corners)
+// the kernel computes what the plain twin computes, bit for bit:
+//   * cdf_c = w_0 + ... + w_c as float32 adds in corner order;
+//   * u = ((idx[0] * 0x9E3779B9) ^ (idx[C-1] * 0x85EBCA6B)) >> 8, times 2^-24
+//     (uint32 wrap); c* = min(#{c : cdf_c < u}, C - 1);
+//   * row = idx[c*] - l*T, dropped outside [0, T) as an XLA scatter drops it;
+//   * value g (one corner) or w_c * g (all corners, one float32 product);
+//   * pallas_sr: (bits(x) + sr_bits16(row, slot, f, l)) & 0xFFFF0000, slot n
+//     (one corner) or n*C + c (all corners), the (L, N[*C]) layout of the
+//     prepass; pallas: round to nearest even bf16.
+// So the result equals the twin's up to the order of the float32 sums.
+//
+// What bounds it on the H100: bytes. At the mapping shape (N = 93,624, L = 4,
+// tet C = 4, F = 8) it reads idx and w (6.0 MB each) and g (12.0 MB) and
+// writes the 8.4 MB table once: 32.4 MB, 9.7 us at 3.35 TB/s; the hashing is
+// a dozen integer ops a float. Layout: one thread per (n, l) or (n, l, c),
+// consecutive threads on consecutive residuals, so loads coalesce; a thread
+// issues the 16-byte loads of its F floats of g first, then those of its C
+// ids and weights, and adds its F values with vector reductions (sm_90's
+// float4 / float2 atomicAdd on global memory: one red.v4 per 4 floats). The
+// table, zeroed just before, stays in the 50 MB L2, where the reductions
+// resolve. Samples of one ray are consecutive points and share cells of the
+// dense small levels (level 0 has 17^3 rows), so the lanes of a warp that
+// add to the same row first sum their values with shuffles
+// (__match_any_sync groups them) and only the lowest lane reduces: on an
+// H100, 22 % less device time on ray-shaped points at the mapping shape and
+// none lost on uniform ones (PERF.md). Not deterministic: the order of the
+// atomics changes from launch to launch.
+//
+// The same kernel serves the per-level scatter-add of values as given
+// (ops/scatter.py:scatter_add, the contract of dnsjax's dense_matmul_scatter):
+// idx (L, M) rows without offset, g (L, M, F) values, no rounding.
 
 #include "common.cuh"
 
-__global__ void scatter_add_kernel(const int* __restrict__ idx,
-                                   const float* __restrict__ vals,
-                                   float* __restrict__ out, int L, int N, int R,
-                                   int F) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)L * N * F) return;
-  const int f = (int)(t % F);
-  const long long ln = t / F;  // (l, n) contribution slot
-  const int l = (int)(ln / N);
-  const int row = idx[ln];
-  if (row < 0 || row >= R) return;
-  atomicAdd(out + ((long long)l * R + row) * F + f, vals[t]);
+enum Corners { ONE = 0, ALL = 1, GIVEN = 2 };
+enum Rounding { AS_F32 = 0, BF16_NEAREST = 1, BF16_STOCHASTIC = 2 };
+
+// dnsjax/ops/scatter.py:sr_bits16 of (row, slot, f, l): murmur3 finalizer.
+__device__ __forceinline__ unsigned int sr_bits16(unsigned int row, unsigned int slot,
+                                                  unsigned int f, unsigned int l) {
+  unsigned int h = (row * 0x9E3779B9u) ^ (slot * 0x85EBCA6Bu) ^ (f * 0xC2B2AE35u) ^
+                   (l * 0x27D4EB2Fu);
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h >> 16;
 }
 
-extern "C" int dnsjax_scatter_add(const void* idx, const void* vals, void* out,
-                                  int L, int N, int R, int F, void* stream) {
-  long long total = (long long)L * N * F;
-  if (total > 0) {
-    scatter_add_kernel<<<dnsjax_blocks(total), DNSJAX_THREADS, 0,
-                         (cudaStream_t)stream>>>(
-        (const int*)idx, (const float*)vals, (float*)out, L, N, R, F);
+template <int ROUND>
+__device__ __forceinline__ float round_value(float x, unsigned int row, unsigned int slot,
+                                             unsigned int f, unsigned int l) {
+  const unsigned int u = __float_as_uint(x);
+  if constexpr (ROUND == BF16_STOCHASTIC)
+    return __uint_as_float((u + sr_bits16(row, slot, f, l)) & 0xFFFF0000u);
+  if constexpr (ROUND == BF16_NEAREST) {  // torch's float -> bfloat16 conversion
+    if ((u & 0x7FFFFFFFu) > 0x7F800000u) return __uint_as_float(0x7FC00000u);
+    return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
   }
+  return x;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ src, float* v) {
+  if constexpr (V == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else if constexpr (V == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(src));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = __ldg(src);
+  }
+}
+
+// One vector reduction of V floats into global memory (sm_90).
+template <int V>
+__device__ __forceinline__ void red_add(float* dst, const float* v) {
+  if constexpr (V == 4)
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  else if constexpr (V == 2)
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  else
+    atomicAdd(dst, v[0]);
+}
+
+// C corners (4 tet, 8 trilinear; 1 for GIVEN), F features (2, 8, 16).
+// 32-bit indexing: the wrapper checks N*L*C*F and L*T*F < 2^31.
+template <int C, int CORNERS, int ROUND, int F>
+__global__ void table_grad_kernel(const int* __restrict__ idx, const float* __restrict__ w,
+                                  const float* __restrict__ g, float* __restrict__ out,
+                                  int N, int L, int T) {
+  constexpr int V = F % 4 == 0 ? 4 : (F % 2 == 0 ? 2 : 1);  // floats a vector access
+  constexpr int K = CORNERS == ALL ? C : 1;  // threads a (n, l)
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int total = N * L * K;
+  const unsigned int active = __ballot_sync(0xffffffffu, t < total);
+  if (t >= total) return;
+  const int nl = t / K;  // (n, l) row of the residuals; GIVEN: (l, n) of idx (L, N)
+  int n, l;
+  if constexpr (CORNERS == GIVEN) {
+    l = t / N;
+    n = t - l * N;
+  } else {
+    n = nl / L;
+    l = nl - n * L;
+  }
+  // the F values of g first: their loads are in flight while the ids arrive
+  float v[F];
+#pragma unroll
+  for (int q = 0; q < F / V; ++q) load_vec<V>(g + nl * F + q * V, v + q * V);
+  int row, slot;
+  float scale = 1.0f;
+  if constexpr (CORNERS == GIVEN) {
+    row = idx[t];
+    slot = n;
+  } else if constexpr (CORNERS == ALL) {
+    row = __ldg(idx + t) - l * T;
+    scale = __ldg(w + t);
+    slot = n * C + (t - nl * C);
+  } else {
+    int id[C];
+    float wt[C];
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(idx + nl * C) + q);
+      const float4 b = __ldg(reinterpret_cast<const float4*>(w + nl * C) + q);
+      id[4 * q] = a.x;
+      id[4 * q + 1] = a.y;
+      id[4 * q + 2] = a.z;
+      id[4 * q + 3] = a.w;
+      wt[4 * q] = b.x;
+      wt[4 * q + 1] = b.y;
+      wt[4 * q + 2] = b.z;
+      wt[4 * q + 3] = b.w;
+    }
+    // dnsjax/ops/hashgrid.py:_stateless_uniform(idx[0], idx[C-1], 0)
+    const unsigned int bits =
+        ((unsigned int)id[0] * 0x9E3779B9u) ^ ((unsigned int)id[C - 1] * 0x85EBCA6Bu);
+    const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
+    float cdf = wt[0];
+    int below = cdf < u;
+#pragma unroll
+    for (int c = 1; c < C; ++c) {
+      cdf = cdf + wt[c];
+      below += cdf < u;
+    }
+    row = id[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c)  // a constant index keeps id[] in registers
+      if (c == (below < C - 1 ? below : C - 1)) row = id[c];
+    row -= l * T;
+    slot = n;
+  }
+  const bool keep = row >= 0 && row < T;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const float x = CORNERS == ALL ? scale * v[f] : v[f];
+    v[f] = round_value<ROUND>(x, (unsigned int)row, (unsigned int)slot, (unsigned int)f,
+                              (unsigned int)l);
+  }
+  // lanes of the warp that add to the same row sum their values at the
+  // lowest of them first (in lane order), which then adds them alone
+  const int lane = threadIdx.x & 31;
+  const unsigned int same = __match_any_sync(active, keep ? l * T + row : -1 - lane);
+  const int leader = __ffs(same) - 1;
+  const int most = (int)__reduce_max_sync(active, (unsigned int)__popc(same));
+  unsigned int rest = lane == leader ? same & (same - 1) : 0u;
+  for (int it = 1; it < most; ++it) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float o = __shfl_sync(active, v[f], src);
+      if (src != lane) v[f] += o;
+    }
+  }
+  if (lane != leader || !keep) return;
+  float* op = out + (l * T + row) * F;
+#pragma unroll
+  for (int q = 0; q < F / V; ++q) red_add<V>(op + q * V, v + q * V);
+}
+
+template <int C, int CORNERS, int ROUND>
+static int launch(const void* idx, const void* w, const void* g, void* out, int N, int L,
+                  int T, int F, cudaStream_t stream) {
+  const long long total = (long long)N * L * (CORNERS == ALL ? C : 1);
+  const unsigned int blocks = dnsjax_blocks(total);
+  const int* i = (const int*)idx;
+  const float* wp = (const float*)w;
+  const float* gp = (const float*)g;
+  float* o = (float*)out;
+  if (F == 2)
+    table_grad_kernel<C, CORNERS, ROUND, 2><<<blocks, DNSJAX_THREADS, 0, stream>>>(
+        i, wp, gp, o, N, L, T);
+  else if (F == 8)
+    table_grad_kernel<C, CORNERS, ROUND, 8><<<blocks, DNSJAX_THREADS, 0, stream>>>(
+        i, wp, gp, o, N, L, T);
+  else if (F == 16)
+    table_grad_kernel<C, CORNERS, ROUND, 16><<<blocks, DNSJAX_THREADS, 0, stream>>>(
+        i, wp, gp, o, N, L, T);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+template <int C, int CORNERS>
+static int launch_rounding(const void* idx, const void* w, const void* g, void* out, int N,
+                           int L, int T, int F, int round, cudaStream_t stream) {
+  if (round == BF16_STOCHASTIC)
+    return launch<C, CORNERS, BF16_STOCHASTIC>(idx, w, g, out, N, L, T, F, stream);
+  if (round == BF16_NEAREST)
+    return launch<C, CORNERS, BF16_NEAREST>(idx, w, g, out, N, L, T, F, stream);
+  return launch<C, CORNERS, AS_F32>(idx, w, g, out, N, L, T, F, stream);
+}
+
+// corners: 0 one sampled corner, 1 all C, 2 values as given (C = 1, idx
+// (L, N) rows without offset, g (L, N, F), w unused, round 0). round: 0
+// float32, 1 nearest bf16, 2 stochastic bf16. F in {2, 8, 16}; idx, w
+// and g 16-byte aligned (the wrapper aligns them). out is zeroed by the
+// caller. Returns cudaGetLastError(), or cudaErrorInvalidValue for a C or F
+// the kernel does not take.
+extern "C" int dnsjax_table_grad(const void* idx, const void* w, const void* g, void* out,
+                                 int N, int L, int T, int F, int C, int corners, int round,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)N * L == 0) return (int)cudaGetLastError();
+  if (corners == GIVEN && C == 1) return launch<1, GIVEN, AS_F32>(idx, w, g, out, N, L, T, F, s);
+  if (corners == ONE && C == 4) return launch_rounding<4, ONE>(idx, w, g, out, N, L, T, F, round, s);
+  if (corners == ONE && C == 8) return launch_rounding<8, ONE>(idx, w, g, out, N, L, T, F, round, s);
+  if (corners == ALL && C == 4) return launch_rounding<4, ALL>(idx, w, g, out, N, L, T, F, round, s);
+  if (corners == ALL && C == 8) return launch_rounding<8, ALL>(idx, w, g, out, N, L, T, F, round, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,14 +8,16 @@ with a backward (table and position gradients) and a ``jvp`` (forward-mode
 tangent, used by the Levenberg-Marquardt tracker under ``torch.func``).
 
 Its two heavy pieces are CUDA kernels with plain-torch twins
-(``ops/gather.py``: the forward; ``ops/scatter.py``: the table-gradient
-scatter). On CPU tensors the twins run; on CUDA tensors the kernels.
+(``ops/gather.py``: the forward; ``ops/scatter.py:table_grad``: the table
+gradient, corner draw, value rounding and scatter in one kernel). On CPU
+tensors the twins run; on CUDA tensors the kernels.
 The position gradient and the tangent stay plain torch on the per-corner
 rows the forward kernel saves.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,7 +42,8 @@ class HashGridSpec:
     ``gather`` is accepted for config compatibility and selects nothing: the
     forward is one kernel on the card and its plain twin on the CPU, and both
     compute the ``gather_bf16`` semantics whenever it is set. ``scatter``
-    selects the value prepass of the table gradient (see ``_table_grad``).
+    selects the value rounding of the table gradient (``ops/scatter.py:
+    table_grad``).
     """
 
     n_levels: int = 16
@@ -207,7 +210,9 @@ def _table_grad_contribs(spec: HashGridSpec, idx, w, g):
     C = spec.n_corners
     if spec.grad_corners >= C:
         return idx, w[..., None] * g[:, :, None, :]
-    cdf = torch.cumsum(w, dim=-1)
+    # float32 adds in corner order, as jnp.cumsum and the CUDA kernel add
+    # (torch's CPU cumsum accumulates in float64 and rounds each partial)
+    cdf = torch.stack(list(itertools.accumulate(w.unbind(-1))), -1)
     u = _stateless_uniform(idx[..., 0], idx[..., -1], 0)
     c_star = torch.clamp((cdf < u[..., None]).sum(-1), 0, C - 1)
     return torch.gather(idx, -1, c_star[..., None])[..., 0], g
@@ -247,51 +252,6 @@ def _position_grad(spec: HashGridSpec, pts, feats, aux, g):
     return torch.where(_inside(pts), d_p, torch.zeros_like(d_p))
 
 
-def _table_grad_inputs(spec: HashGridSpec, idx, w, g):
-    """Per-level scatter inputs of the table gradient: (li (L, M) int32 rows,
-    lv (L, M, F) float32 values), M = N (stochastic corner) or N*C.
-
-    The value prepass follows ``spec.scatter`` so each mode computes what the
-    reference computes: ``pallas_sr`` stochastically rounds every
-    contribution to the bf16 grid with the reference's salts and slot order
-    (contributions laid out (L, N[*C])); ``pallas`` rounds to nearest bf16;
-    ``pallas_split`` and ``xla`` scatter float32 values.
-    """
-    from dnsjax_torch.ops.scatter import sr_bits16, stochastic_round_bf16
-
-    L, T, F = spec.n_levels, spec.table_size, spec.n_features
-    scatter_idx, contrib = _table_grad_contribs(spec, idx.to(torch.int64), w, g)
-    off = torch.arange(L, device=idx.device) * T
-    if scatter_idx.dim() == 2:  # stochastic corner: (N, L); contrib (N, L, F)
-        li = (scatter_idx - off[None, :]).t()
-        lv = contrib.transpose(0, 1)
-    else:  # exact corners: (N, L, C); contrib (N, L, C, F)
-        li = (scatter_idx - off[None, :, None]).transpose(0, 1).reshape(L, -1)
-        lv = contrib.transpose(0, 1).reshape(L, -1, F)
-    li = li.to(torch.int32).contiguous()
-    lv = lv.to(torch.float32).contiguous()
-    if spec.scatter == "pallas_sr":
-        dev = li.device
-        bits = sr_bits16(
-            li[..., None],
-            torch.arange(li.shape[1], device=dev)[None, :, None],
-            torch.arange(F, device=dev)[None, None, :],
-            torch.arange(L, device=dev)[:, None, None],
-        )
-        lv = stochastic_round_bf16(lv, bits)
-    elif spec.scatter == "pallas":
-        lv = lv.to(torch.bfloat16).to(torch.float32)
-    return li, lv
-
-
-def _table_grad(spec: HashGridSpec, idx, w, g) -> torch.Tensor:
-    """(L, T, F) table gradient: contributions, value prepass, then the
-    scatter (the CUDA kernel on the card, ops/scatter.py)."""
-    from dnsjax_torch.ops.scatter import scatter_add
-
-    return scatter_add(*_table_grad_inputs(spec, idx, w, g), spec.table_size)
-
-
 class _HashEncode(torch.autograd.Function):
     """Encode with residuals; see ``hash_encode``."""
 
@@ -321,7 +281,9 @@ class _HashEncode(torch.autograd.Function):
         g = g.reshape(-1, spec.n_levels, spec.n_features).to(torch.float32)
         d_table = d_pts = None
         if ctx.needs_input_grad[0]:
-            d_table = _table_grad(spec, idx, w, g)
+            from dnsjax_torch.ops.scatter import table_grad
+
+            d_table = table_grad(spec, idx, w, g)
         if ctx.needs_input_grad[1]:
             d_pts = _position_grad(spec, pts, feats, aux, g)
         return d_table, d_pts, None, None

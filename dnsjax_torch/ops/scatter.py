@@ -1,13 +1,22 @@
-"""Table-gradient scatter-add: the CUDA kernel's wrapper and its plain twin,
-plus the stochastic bf16 rounding of the ``pallas_sr`` prepass, and the
-sorted (deterministic) scatter-add ``sorted_scatter_add``.
+"""The hash-grid table gradient (the CUDA kernel's wrapper ``table_grad`` and
+its plain twin), the per-level scatter-add ``scatter_add``, and the sorted
+(deterministic) scatter-add ``sorted_scatter_add``.
 
-Port of dnsjax/ops/scatter.py:dense_matmul_scatter, the per-level
-``out[l] = zeros(R, F).at[idx[l]].add(vals[l])`` that the TPU ran as the
-one-hot-matmul kernel ``_dense_kernel``. Here it is one float32-atomic
-kernel (``csrc/scatter.cu``); the TPU's VMEM gate, windows and level
-partition have no counterpart. ``sr_bits16`` and ``stochastic_round_bf16``
-are bit-identical to the reference's, so the rounded contributions match.
+``table_grad`` ports the table-gradient half of dnsjax/ops/hashgrid.py:
+_hash_encode_bwd: the stochastic corner draw (``_table_grad_contribs``),
+the per-level layout, the value rounding that ``spec.scatter`` selects
+(``pallas_sr``: ``sr_bits16`` + ``stochastic_round_bf16``; ``pallas``:
+nearest bf16; ``pallas_split`` and ``xla``: float32), and the scatter-add
+that the TPU ran as the one-hot-matmul kernel dnsjax/ops/scatter.py:
+_dense_kernel. On the card all of it is one launch of ``csrc/scatter.cu``
+on a zeroed table: the kernel reads the encode's residuals (idx, w) and the
+cotangent once and writes the table once, so bytes bound it (32.4 MB,
+9.7 us at 3.35 TB/s at the textured mapping shape); run as torch ops, the
+prepass alone was ~56 launches. ``sr_bits16`` and ``stochastic_round_bf16``
+are bit-identical to the reference's, and so are the kernel's, so the
+gradient equals the twin's up to the order of the float32 atomics.
+``scatter_add`` (dnsjax's ``dense_matmul_scatter`` contract) launches the
+same kernel on values as given.
 
 ``sorted_scatter_add`` ports dnsjax/ops/scatter.py:sorted_scatter_add, whose
 TPU kernel ``_kernel`` scattered row-sorted contributions block by block
@@ -25,9 +34,16 @@ import functools
 
 import torch
 
-LAUNCHES = 0  # kernel launches by scatter_add (the plain twin does not count)
+from dnsjax_torch.ops.hashgrid import _table_grad_contribs
+
+LAUNCHES = 0  # kernel launches by table_grad and scatter_add (twins do not count)
 SORTED_LAUNCHES = 0  # kernel launches by sorted_segment_sum
 _U32 = 0xFFFFFFFF
+# dnsjax_table_grad's modes: corners (one sampled, all, values as given) and
+# value rounding per ``spec.scatter``
+_ONE, _ALL, _GIVEN = 0, 1, 2
+_ROUNDING = {"xla": 0, "pallas_split": 0, "pallas": 1, "pallas_sr": 2}
+_FEATURES = (2, 8, 16)  # the kernel's compile-time feature counts
 
 
 def sr_bits16(*salted: torch.Tensor) -> torch.Tensor:
@@ -58,6 +74,106 @@ def stochastic_round_bf16(x: torch.Tensor, bits16: torch.Tensor) -> torch.Tensor
     return u.to(torch.int32).view(torch.float32)
 
 
+def table_grad_inputs(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Per-level scatter inputs of the table gradient, in plain torch:
+    (li (L, M) int32 rows, lv (L, M, F) float32 values), M = N (stochastic
+    corner) or N*C, from idx (N, L, C) flat rows, w (N, L, C), g (N, L, F).
+
+    The value prepass follows ``spec.scatter`` so each mode computes what the
+    reference computes: ``pallas_sr`` stochastically rounds every
+    contribution to the bf16 grid with the reference's salts and slot order
+    (contributions laid out (L, N[*C])); ``pallas`` rounds to nearest bf16;
+    ``pallas_split`` and ``xla`` scatter float32 values.
+    """
+    L, T, F = spec.n_levels, spec.table_size, spec.n_features
+    scatter_idx, contrib = _table_grad_contribs(spec, idx.to(torch.int64), w, g)
+    off = torch.arange(L, device=idx.device) * T
+    if scatter_idx.dim() == 2:  # stochastic corner: (N, L); contrib (N, L, F)
+        li = (scatter_idx - off[None, :]).t()
+        lv = contrib.transpose(0, 1)
+    else:  # exact corners: (N, L, C); contrib (N, L, C, F)
+        li = (scatter_idx - off[None, :, None]).transpose(0, 1).reshape(L, -1)
+        lv = contrib.transpose(0, 1).reshape(L, -1, F)
+    li = li.to(torch.int32).contiguous()
+    lv = lv.to(torch.float32).contiguous()
+    if spec.scatter == "pallas_sr":
+        dev = li.device
+        bits = sr_bits16(
+            li[..., None],
+            torch.arange(li.shape[1], device=dev)[None, :, None],
+            torch.arange(F, device=dev)[None, None, :],
+            torch.arange(L, device=dev)[:, None, None],
+        )
+        lv = stochastic_round_bf16(lv, bits)
+    elif spec.scatter == "pallas":
+        lv = lv.to(torch.bfloat16).to(torch.float32)
+    return li, lv
+
+
+def table_grad_plain(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain-torch (L, T, F) table gradient: ``table_grad_inputs`` then
+    ``scatter_add_plain``."""
+    return scatter_add_plain(*table_grad_inputs(spec, idx, w, g), spec.table_size)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address (the kernel's vector loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding) -> None:
+    """One launch of ``dnsjax_table_grad`` adding into the zeroed ``out``."""
+    global LAUNCHES
+    from dnsjax_torch.ops import _cuda
+
+    if F not in _FEATURES:
+        raise ValueError(f"table_grad: {F} features, the kernel takes {_FEATURES}")
+    if N * L * C * F >= 2**31 or L * T * F >= 2**31:
+        raise ValueError("table_grad: N*L*C*F and L*T*F must fit int32 indices")
+    if N * L == 0:
+        return
+    err = _cuda.library().dnsjax_table_grad(
+        idx.data_ptr(), w.data_ptr() if w is not None else None, g.data_ptr(),
+        out.data_ptr(), N, L, T, F, C, corners, rounding, _cuda.stream_ptr(out.device),
+    )
+    _cuda.check(err, "dnsjax_table_grad")
+    LAUNCHES += 1
+
+
+def table_grad(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(L, T, F) table gradient of ``hash_encode``; same result as
+    ``table_grad_plain`` up to the order of the float32 sums.
+
+    idx (N, L, C) int32 flat rows with the level offset, w (N, L, C) float32
+    (the encode's residuals), g (N, L, F) float32 cotangent. CPU tensors
+    take the plain twin. CUDA tensors launch ``dnsjax_table_grad``
+    (csrc/scatter.cu) once on a zeroed table, and never fall back.
+    """
+    if all(t.device.type == "cpu" for t in (idx, w, g)):
+        return table_grad_plain(spec, idx, w, g)
+    dev = idx.device
+    if dev.type != "cuda" or w.device != dev or g.device != dev:
+        raise ValueError(f"table_grad: idx on {dev}, w on {w.device}, g on {g.device}")
+    if idx.dtype != torch.int32 or w.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError("table_grad: idx must be int32, w and g float32")
+    L, T, F, C = spec.n_levels, spec.table_size, spec.n_features, spec.n_corners
+    N = idx.shape[0]
+    if (tuple(idx.shape) != (N, L, C) or tuple(w.shape) != (N, L, C)
+            or tuple(g.shape) != (N, L, F)):
+        raise ValueError(
+            f"table_grad: idx {tuple(idx.shape)}, w {tuple(w.shape)}, g {tuple(g.shape)}, "
+            f"expected (N, {L}, {C}), (N, {L}, {C}) and (N, {L}, {F})"
+        )
+    if C not in (4, 8):
+        raise ValueError(f"table_grad: {C} corners, expected 4 (tet) or 8 (trilinear)")
+    out = torch.zeros((L, T, F), dtype=torch.float32, device=dev)
+    corners = _ONE if spec.grad_corners < C else _ALL
+    _launch(_aligned(idx), _aligned(w), _aligned(g), out, N, L, T, F, C, corners,
+            _ROUNDING[spec.scatter])
+    return out
+
+
 def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor, R: int) -> torch.Tensor:
     """Plain-torch per-level scatter-add: idx (L, N) int, vals (L, N, F) f32
     -> (L, R, F) f32. Rows outside [0, R) are dropped, as in the kernel."""
@@ -75,13 +191,11 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, R: int) -> torch.Tensor:
     """Per-level scatter-add; same contract as ``scatter_add_plain``.
 
     CPU tensors take the plain twin. CUDA tensors launch
-    ``dnsjax_scatter_add`` (csrc/scatter.cu) and never fall back.
+    ``dnsjax_table_grad`` (csrc/scatter.cu) on the values as given, and
+    never fall back.
     """
-    global LAUNCHES
     if idx.device.type == "cpu" and vals.device.type == "cpu":
         return scatter_add_plain(idx, vals, R)
-    from dnsjax_torch.ops import _cuda
-
     if idx.device.type != "cuda" or vals.device != idx.device:
         raise ValueError(f"scatter_add: idx on {idx.device}, vals on {vals.device}")
     if idx.dtype != torch.int32 or vals.dtype != torch.float32:
@@ -93,17 +207,8 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, R: int) -> torch.Tensor:
         )
     L, N = idx.shape
     F = vals.shape[-1]
-    if N >= 2**31 or R >= 2**31:
-        raise ValueError("scatter_add: N and R must fit int32")
-    idx = idx.contiguous()
-    vals = vals.contiguous()
     out = torch.zeros((L, R, F), dtype=torch.float32, device=idx.device)
-    err = _cuda.library().dnsjax_scatter_add(
-        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), L, N, R, F,
-        _cuda.stream_ptr(idx.device),
-    )
-    _cuda.check(err, "dnsjax_scatter_add")
-    LAUNCHES += 1
+    _launch(idx.contiguous(), None, _aligned(vals), out, N, L, R, F, 1, _GIVEN, 0)
     return out
 
 

@@ -4,7 +4,8 @@ Imports no jax, so it runs on a machine without it:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider``.
 Without a card every test skips. Tolerances: forward output and weights
 atol 1e-6 (same bf16 rows and float32 steps), per-corner rows, ids and aux
-exact; table gradient 1e-5 of each row's sum of
+exact; table gradient (the fused kernel in every value mode, one corner
+and all corners, and its values-as-given mode) 1e-5 of each row's sum of
 contribution magnitudes plus 1e-7, the bound of the float32 atomics'
 summation order; the sorted scatter-add the same bound against its twin,
 and bit-for-bit equality between two launches (it uses no atomics).
@@ -59,23 +60,58 @@ def test_encode_forward_kernel_matches_plain(dev, interp, F):
     assert torch.equal(bare, got[0])
 
 
-@pytest.mark.parametrize("scatter_mode", ["pallas_sr", "xla"])
-def test_table_gradient_kernel_matches_plain(dev, scatter_mode):
-    spec = _spec("tet", 8, grad_corners=1, scatter=scatter_mode)
+def _table_grad_bound(spec, idx, w, g):
+    """Reordering a float32 sum moves it by at most ~n * eps * sum|v|: each row
+    is held to 1e-5 of its sum of magnitudes (not of its value, which may
+    cancel), plus 1e-7."""
+    li, lv = scatter.table_grad_inputs(spec, idx, w, g)
+    return 1e-7 + 1e-5 * scatter.scatter_add_plain(li, lv.abs(), spec.table_size)
+
+
+@pytest.mark.parametrize("F", [2, 8, 16])
+@pytest.mark.parametrize("interp", ["tet", "trilinear"])
+@pytest.mark.parametrize("grad_corners", [1, 8])
+@pytest.mark.parametrize("scatter_mode", ["pallas_sr", "pallas", "pallas_split", "xla"])
+def test_table_gradient_kernel_matches_plain(dev, scatter_mode, grad_corners, interp, F):
+    """The fused kernel (corner draw, rounding, scatter) against
+    table_grad_plain on the forward kernel's residuals; 4999 points x 3
+    levels (x C corners) is no multiple of the 256-thread block. A backward
+    through hash_encode launches it exactly once and gives the same
+    gradient within the same bound."""
+    spec = _spec(interp, F, grad_corners=grad_corners, scatter=scatter_mode)
+    N = 4999
     g = torch.Generator(device=dev).manual_seed(1)
-    table = (torch.rand((3, 4096, 8), generator=g, device=dev) - 0.5).requires_grad_(True)
-    pts = torch.rand((5000, 3), generator=g, device=dev)
-    cot = torch.randn((5000, 24), generator=g, device=dev)
+    table = (torch.rand((3, 4096, F), generator=g, device=dev) - 0.5).requires_grad_(True)
+    pts = torch.rand((N, 3), generator=g, device=dev) * 1.2 - 0.1
+    cot = torch.randn((N, 3 * F), generator=g, device=dev)
+    _, _, idx, w, _ = gather.encode_forward(pts, table.detach(), spec, True)
+    gl = cot.reshape(N, 3, F)
+    before = scatter.LAUNCHES
+    got = scatter.table_grad(spec, idx, w, gl)
+    assert scatter.LAUNCHES == before + 1
+    ref = scatter.table_grad_plain(spec, idx, w, gl)
+    bound = _table_grad_bound(spec, idx, w, gl)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= bound).all())
     before = scatter.LAUNCHES
     (hashgrid.hash_encode(table, pts, spec) * cot).sum().backward()
     assert scatter.LAUNCHES == before + 1
-    _, feats, idx, w, aux = gather.encode_forward_plain(pts, table.detach(), spec, True)
-    li, lv = hashgrid._table_grad_inputs(spec, idx, w, cot.reshape(5000, 3, 8))
-    ref = scatter.scatter_add_plain(li, lv, 4096)
-    # reordering a float32 sum moves it by at most ~n * eps * sum|v|: hold each
-    # row to 1e-5 of its sum of magnitudes (not of its value, which may cancel)
-    bound = 1e-7 + 1e-5 * scatter.scatter_add_plain(li, lv.abs(), 4096)
     assert bool(((table.grad - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("F", [2, 8, 16])
+def test_scatter_add_kernel_matches_plain(dev, F):
+    """The kernel's values-as-given mode: rows out of range at both ends are
+    dropped; 3 x 7001 contributions are no multiple of the block."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    idx = torch.randint(-3, 4096 + 3, (3, 7001), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.randn((3, 7001, F), generator=g, device=dev)
+    before = scatter.LAUNCHES
+    got = scatter.scatter_add(idx, vals, 4096)
+    assert scatter.LAUNCHES == before + 1
+    ref = scatter.scatter_add_plain(idx, vals, 4096)
+    bound = 1e-7 + 1e-5 * scatter.scatter_add_plain(idx, vals.abs(), 4096)
+    assert bool(((got - ref).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("hot", [False, True])
@@ -144,6 +180,18 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         scatter.scatter_add(torch.zeros((2, 4), device=dev, dtype=torch.int64),
                             torch.zeros((2, 4, 8), device=dev), 16)
+    idx = torch.zeros((4, 3, 4), device=dev, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        scatter.table_grad(spec, idx.long(), torch.zeros((4, 3, 4), device=dev),
+                           torch.zeros((4, 3, 8), device=dev))
+    with pytest.raises(ValueError):  # g for 2 levels of 3
+        scatter.table_grad(spec, idx, torch.zeros((4, 3, 4), device=dev),
+                           torch.zeros((4, 2, 8), device=dev))
+    with pytest.raises(ValueError):  # the kernel takes 2, 8 or 16 features
+        scatter.scatter_add(torch.zeros((2, 4), device=dev, dtype=torch.int32),
+                            torch.zeros((2, 4, 4), device=dev), 16)
+    with pytest.raises(ValueError):  # w on the CPU
+        scatter.table_grad(spec, idx, torch.zeros((4, 3, 4)), torch.zeros((4, 3, 8), device=dev))
     with pytest.raises(TypeError):
         scatter.sorted_segment_sum(torch.zeros((4,), device=dev, dtype=torch.int64),
                                    torch.zeros((4, 8), device=dev), 16)
