@@ -10,14 +10,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      features, tet; the 1992-ray mapping batch, the 500-ray tracking batch,
      47 samples each, with residuals; without them, the mesh query's chunk
      of ``meshing.points_batch_size`` points and the full-frame renderer's
-     chunk of 4096 rays x 47 samples) and the synthetic scene (8 levels,
-     2^13 rows, 2 features, tet and trilinear): forward output and
+     chunk of 4096 rays x 47 samples), of the reference-parity grid (16
+     levels, 2^16 rows, 2 features, trilinear, float32 rows, all 8 corners,
+     ``scatter: xla``; the same two batches) and of the synthetic scene (8
+     levels, 2^13 rows, 2 features, tet and trilinear): forward output and
      residuals, position gradient and forward-mode tangent; the fused table
      gradient against ``table_grad_plain`` in each case's mode and in the
      other value modes, one corner and all corners, and its values-as-given
-     mode against ``scatter_add_plain``, timed at the mapping shape on
-     uniform and on ray-shaped points beside the torch prepass it replaces,
-     with a profiler count of each path's device kernels; the sorted
+     mode against ``scatter_add_plain``, timed at the textured and parity
+     mapping shapes (textured on uniform and on ray-shaped points) beside
+     the torch prepass it replaces, with a profiler count of each path's
+     device kernels; its level-draw mode (``model.grid.grad_levels: 1``:
+     one tet corner under ``pallas_sr``, all trilinear corners) at the
+     textured mapping shape, checked, timed and counted the same way; the sorted
      scatter-add on the textured mapping's table-gradient rows, on 3 * 2^20
      uniform rows, on a skewed case and on runs that end on its tile edges,
      with two launches bit-identical; max errors, and times (CUDA events)
@@ -26,11 +31,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (``bound_ms``, ``bound_share``; the encode counts the table rows its
      points touch);
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
-     card (all 40 frames unless --end-frame) with ``mapping.vis_every=20``
-     and ``mapping.mesh_every=20``, then ATE RMSE of the written model.npz,
-     last keystep PSNR, the hooks' walls and the kernels' launch counts in
-     that run; then a torch.profiler breakdown of one mapping call and one
-     tracked frame, with the port's kernels' device time on the run's data;
+     card (all 40 frames unless --end-frame) with ``mapping.vis_every=20``,
+     ``mapping.mesh_every=20`` and ``mapping.checkpoint_every=20``, then ATE
+     RMSE of the written model.npz, last keystep PSNR, the hooks' walls and
+     the kernels' launch counts in that run; then a torch.profiler
+     breakdown of one mapping call and one tracked frame, with the port's
+     kernels' device time on the run's data;
+  3b. parity: the same scene at ``scripts/ab_quality.py``'s reference-parity
+     settings (16 x 2 trilinear grid, exact float32 backward, float32
+     compute, 4 feature taps, Adam tracking of 50 iterations, no early
+     exit), 12 frames: ATE and PSNR bounds, launches, then the profiler
+     breakdown (the table gradient must not run in an Adam-tracked frame);
+  3c. resume: the textured run resumed from phase 3's ``model_20.npz`` with
+     Adam tracking (patience 10) and ``grad_levels: 1``, frames 21-39: ATE
+     and PSNR bounds, mean Adam iterations a frame; then the decoder warm-up
+     (300 rays x 100 iterations) on frame 39 for its two least-seen classes:
+     finite losses, a changed map, 200 table-gradient launches (the rays'
+     encode and the TV sub-grid's, each iteration);
   4. outputs: ``dnsjax_torch.cli.extract_mesh --resolution 256`` and
      ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
      encode kernel's launches in each; sanity bounds on the mesh and the
@@ -182,7 +199,7 @@ def _check_table_grad(name, spec, idx, w, g) -> float:
     bound = 1e-7 + 1e-5 * scatter.scatter_add_plain(li, lv.abs(), spec.table_size)
     torch.cuda.synchronize()
     err = max(_max_err(got, ref), _max_err(given, ref))
-    mode = f"{spec.scatter} grad_corners={spec.grad_corners}"
+    mode = f"{spec.scatter} grad_corners={spec.grad_corners} grad_levels={spec.grad_levels}"
     for out in (got, given):
         if out.shape != ref.shape or not bool(((out - ref).abs() <= bound).all()):
             raise AssertionError(f"{name} table gradient ({mode}) mismatch: max err {err}")
@@ -190,8 +207,13 @@ def _check_table_grad(name, spec, idx, w, g) -> float:
     return err
 
 
-def _table_grad_bytes(N: int, L: int, C: int, F: int, T: int) -> int:
-    """idx and w 4 B a corner, g 4F B a (point, level), the table once."""
+def _table_grad_bytes(spec, N: int) -> int:
+    """idx and w 4 B a corner, g 4F B a (point, level), the table once. In
+    the level-draw mode a point needs only the two ids of the draw and its
+    drawn level's C ids, C weights and F cotangent values."""
+    L, C, F, T = spec.n_levels, spec.n_corners, spec.n_features, spec.table_size
+    if spec.grad_levels == 1 and L > 1:
+        return N * (8 + 8 * C + 4 * F) + L * T * F * 4
     return N * L * (8 * C + 4 * F) + L * T * F * 4
 
 
@@ -247,7 +269,8 @@ def _time_table_grad(name, spec, idx, w, g):
                        li.long() + T * torch.arange(L, device=li.device)[:, None], -1)
     fused = lambda: scatter.table_grad(spec, idx, w, g)
     unfused = lambda: scatter.scatter_add(*scatter.table_grad_inputs(spec, idx, w, g), T)
-    row = _timed_row(f"{name} L={L} N={N} C={C} F={F}", _table_grad_bytes(N, L, C, F, T),
+    mode = f"{spec.scatter} grad_corners={spec.grad_corners} grad_levels={spec.grad_levels}"
+    row = _timed_row(f"{name} L={L} N={N} C={C} F={F} {mode}", _table_grad_bytes(spec, N),
                      fused, lambda: scatter.table_grad_plain(spec, idx, w, g),
                      _index_add(flat.reshape(-1), lv.reshape(-1, F), L * T))
     # where the time goes: the zeroed table alone, and the same reductions
@@ -272,6 +295,17 @@ def _time_table_grad(name, spec, idx, w, g):
     return row
 
 
+# The textured scene's grid (configs/synthetic/textured.yaml over
+# configs/slam.yaml) and the reference-parity grid (scripts/ab_quality.py),
+# at the scene's desired resolution (bound extent 4.48 m / voxel 0.02 m)
+TEXTURED = dict(n_levels=4, n_features=8, log2_hashmap_size=16, base_resolution=16,
+                desired_resolution=224, interp="tet", grad_corners=1, gather_bf16=True,
+                scatter="pallas_sr")
+PARITY = dict(n_levels=16, n_features=2, log2_hashmap_size=16, base_resolution=16,
+              desired_resolution=224, interp="trilinear", grad_corners=8, gather_bf16=False,
+              scatter="xla")
+
+
 def check_kernels(results, plain_shapes):
     """Phase 2: every kernel against its plain twin; times and bounds at the
     main path's shapes into ``results``. ``plain_shapes``: (name, points) of
@@ -282,13 +316,12 @@ def check_kernels(results, plain_shapes):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    textured = dict(n_levels=4, n_features=8, log2_hashmap_size=16, base_resolution=16,
-                    desired_resolution=224, interp="tet", grad_corners=1, gather_bf16=True,
-                    scatter="pallas_sr")
     cases = [
         # (name, spec kwargs, N, timed, table-gradient variants: spec changes)
-        ("textured-map", textured, 1992 * 47, True, []),
-        ("textured-track", textured, 500 * 47, True, []),
+        ("textured-map", TEXTURED, 1992 * 47, True, []),
+        ("textured-track", TEXTURED, 500 * 47, True, []),
+        ("parity-map", PARITY, 1992 * 47, True, []),
+        ("parity-track", PARITY, 500 * 47, True, []),
         ("synthetic-tet", dict(n_levels=8, n_features=2, log2_hashmap_size=13,
                                base_resolution=8, desired_resolution=112, interp="tet",
                                grad_corners=1, scatter="pallas_sr"),
@@ -349,8 +382,21 @@ def check_kernels(results, plain_shapes):
         if name == "textured-map":
             textured_grad = scatter.table_grad_inputs(spec, idx, w, gl) + (T,)
             sca["shapes"].append(_time_table_grad(name, spec, idx, w, gl))
+            # the level-draw mode (grad_levels: 1) at the same shape: one
+            # tet corner under pallas_sr (it rounds nothing), and all corners
+            # of the trilinear cell on that cell's residuals
+            for lvl_name, lvl_spec in (
+                    ("level-draw", dataclasses.replace(spec, grad_levels=1)),
+                    ("level-draw all corners", dataclasses.replace(
+                        spec, interp="trilinear", grad_corners=8, grad_levels=1))):
+                _, _, li, lw, _ = gather.encode_forward(pts, table, lvl_spec, True)
+                sca["max_abs_err"] = max(sca["max_abs_err"], _check_table_grad(
+                    f"{name} {lvl_name}", lvl_spec, li, lw, gl))
+                sca["shapes"].append(_time_table_grad(f"{name} {lvl_name}", lvl_spec, li, lw, gl))
+        if name == "parity-map":
+            sca["shapes"].append(_time_table_grad(name, spec, idx, w, gl))
     # the table gradient again at the mapping shape, on ray-shaped points
-    spec = hashgrid.HashGridSpec(**textured)
+    spec = hashgrid.HashGridSpec(**TEXTURED)
     L, T, F = spec.n_levels, spec.table_size, spec.n_features
     table = torch.rand((L, T, F), generator=gen, device=dev) * 2 - 1
     pts = _ray_points(gen, 1992, 47)
@@ -363,7 +409,7 @@ def check_kernels(results, plain_shapes):
     _headline(sca, sca["shapes"][0])
 
     # the output paths' encode without residuals, at their chunk sizes
-    spec = hashgrid.HashGridSpec(**textured)
+    spec = hashgrid.HashGridSpec(**TEXTURED)
     table = torch.rand((spec.n_levels, spec.table_size, spec.n_features), generator=gen,
                        device=dev) * 2 - 1
     for name, N in plain_shapes:
@@ -473,19 +519,38 @@ def _counts():
             "sorted_scatter_add": scatter.SORTED_LAUNCHES}
 
 
-def run_slam(end_frame):
+# scripts/ab_quality.py's "parity" variant: the reference's grid, float32
+# compute, 4 feature taps, the reference's Adam schedule without early exit
+PARITY_SETS = ["model.grid.n_levels=16", "model.grid.level_dim=2", "model.grid.grad_corners=8",
+               "model.grid.gather_bf16=false", "model.grid.interp=trilinear",
+               "model.grid.grad_levels=0", "model.grid.scatter=xla", "tpu.compute_dtype=float32",
+               "tpu.feature_taps=4", "model.pos.kernel=gaussian", "training.smooth_every=1",
+               "tracking.method=adam", "tracking.patience=0"]
+# the A/B harness's Adam operating point plus the level-draw backward
+RESUME_SETS = ["tracking.method=adam", "tracking.patience=10", "model.grid.grad_levels=1"]
+OUT_PARITY = os.path.join(ROOT, "output", "chip_smoke_parity")
+OUT_RESUME = os.path.join(ROOT, "output", "chip_smoke_resume")
+
+
+def _drive(name, out, sets, end_frame=None, resume=None):
+    """One ``dnsjax_torch.cli.run`` of CONFIG on the card into ``out`` with
+    the kernels' counts set to 0 just before and read just after; checks
+    finite results, both kernels launched, ATE of the written model.npz <
+    0.3 m and last keystep PSNR > 20 dB; prints the ``name`` line."""
     import numpy as np
 
     from dnsjax_torch.cli import run as cli_run
     from dnsjax_torch.cli.eval_ate import ate_stats
 
-    out = OUT
     if os.path.isdir(out):
         shutil.rmtree(out)
-    argv = [CONFIG, "--device", "cuda", "--output", out,
-            "--set", "mapping.vis_every=20", "--set", "mapping.mesh_every=20"]
+    argv = [CONFIG, "--device", "cuda", "--output", out]
+    for item in sets:
+        argv += ["--set", item]
     if end_frame:
         argv += ["--end-frame", str(end_frame)]
+    if resume:
+        argv += ["--resume", resume]
     _reset_counts()
     t0 = time.perf_counter()
     slam = cli_run.main(argv)
@@ -495,26 +560,91 @@ def run_slam(end_frame):
     n = min(end_frame, slam.n_img) if end_frame else slam.n_img
     psnr = slam.last_map_aux["psnr"]
     track = float(np.mean(slam.track_times))
-    keystep = float(np.mean(slam.map_times[1:])) if len(slam.map_times) > 1 else float("nan")
-    summary = dict(frames=n, wall_s=wall, init_map_s=slam.map_times[0], track_avg_s=track,
-                   keystep_avg_s=keystep, ate_rmse_m=ate, last_keystep_psnr=psnr,
-                   frame_vis_s=slam.vis_times, save_mesh_s=slam.mesh_times,
-                   panels=sorted(f for f in os.listdir(out) if f.endswith(".jpg")),
-                   meshes=sorted(f for f in os.listdir(out) if f.endswith(".ply")),
-                   launches=launches)
-    print("slam " + json.dumps(summary), flush=True)
+    keystep = float(np.mean(slam.map_times[1:] if resume is None else slam.map_times))
+    summary = dict(frames=n, wall_s=wall, init_map_s=None if resume else slam.map_times[0],
+                   track_avg_s=track, keystep_avg_s=keystep, keysteps=len(slam.map_times),
+                   tracked_frames=len(slam.track_times),
+                   track_iters_mean=float(np.mean(slam.track_iters)),
+                   ate_rmse_m=ate, last_keystep_psnr=psnr, frame_vis_s=slam.vis_times,
+                   save_mesh_s=slam.mesh_times,
+                   decoder_inits_in_run=len(slam.decoder_inits), launches=launches)
+    print(f"{name} " + json.dumps(summary), flush=True)
     if not all(np.isfinite(v) for v in (ate, psnr, track, keystep)):
-        raise AssertionError(f"non-finite SLAM result: {summary}")
+        raise AssertionError(f"non-finite {name} result: {summary}")
     if min(launches["hash_encode_fwd"], launches["scatter_add"]) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if n > 20 and (len(slam.vis_times) != 1 or len(slam.mesh_times) != 1
-                   or "00020.jpg" not in summary["panels"]):
-        raise AssertionError(f"the output hooks did not run at frame 20: {summary}")
+        raise AssertionError(f"a kernel of the {name} path never launched: {launches}")
     if not ate < 0.3:
-        raise AssertionError(f"ATE RMSE {ate} m >= 0.3 m")
+        raise AssertionError(f"{name}: ATE RMSE {ate} m >= 0.3 m")
     if not psnr > 20.0:
-        raise AssertionError(f"last keystep PSNR {psnr} <= 20 dB")
+        raise AssertionError(f"{name}: last keystep PSNR {psnr} <= 20 dB")
+    return slam, launches, summary
+
+
+def run_slam(end_frame):
+    """Phase 3: the main path, with its output hooks and checkpoints at 20."""
+    slam, launches, summary = _drive(
+        "slam", OUT, ["mapping.vis_every=20", "mapping.mesh_every=20",
+                      "mapping.checkpoint_every=20"], end_frame)
+    n = summary["frames"]
+    panels = sorted(f for f in os.listdir(OUT) if f.endswith(".jpg"))
+    if n > 20 and (len(slam.vis_times) != 1 or len(slam.mesh_times) != 1
+                   or "00020.jpg" not in panels
+                   or not os.path.exists(os.path.join(OUT, "model_20.npz"))):
+        raise AssertionError(f"the output hooks did not run at frame 20: {summary}, {panels}")
     return slam, launches
+
+
+def run_parity(end_frame: int = 12):
+    """Phase 3b: the reference-parity schedule, cut to ``end_frame``
+    frames (the 500-iteration bootstrap, keysteps at 5, 10 and the last,
+    Adam-tracked frames 2 onwards)."""
+    return _drive("slam_parity", OUT_PARITY, PARITY_SETS, end_frame)[:2]
+
+
+def run_resume():
+    """Phase 3c: phase 3's run resumed from ``model_20.npz`` (frames
+    21-39), then the decoder warm-up on its last frame."""
+    import numpy as np
+    import torch
+
+    from dnsjax_torch.models.decoder import param_leaves
+
+    slam, launches, _ = _drive("slam_resume", OUT_RESUME, RESUME_SETS,
+                               resume=os.path.join(OUT, "model_20.npz"))
+    if slam.track_iters and min(slam.track_iters) < 1:
+        raise AssertionError(f"a tracked frame ran no Adam iteration: {slam.track_iters}")
+    idx = slam.n_img - 1
+    cur = slam._frame_to_device(slam.dataset[idx])
+    shown = set(np.unique(cur["host"]["label"]).tolist())
+    classes = sorted(shown, key=lambda c: (slam.exist_decoders.get(c, 0), c))[:2]
+    before = [p.clone() for p in param_leaves(slam.params)]
+    c2w = torch.as_tensor(slam.estimate_c2w[idx], device=slam.device)
+    slam._cur_state(cur)  # the frame's features and pixels, as a keystep leaves them
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = slam.decoder_init(cur, c2w, classes).cpu().numpy()
+    wall = time.perf_counter() - t0
+    init_launches = _counts()
+    changed = sum(int(not torch.equal(a, b)) for a, b in zip(before, param_leaves(slam.params)))
+    line = dict(frame=idx, classes=classes,
+                counts={c: slam.exist_decoders.get(c, 0) for c in classes},
+                iters=int(losses.shape[0]), wall_s=wall,
+                loss_first10=float(losses[:10].mean()), loss_last10=float(losses[-10:].mean()),
+                changed_leaves=changed, leaves=len(before), launches=init_launches,
+                decoder_inits_in_run=len(slam.decoder_inits) - 1)
+    print("decoder_init " + json.dumps(line), flush=True)
+    if not np.isfinite(losses).all() or losses.shape != (100,):
+        raise AssertionError(f"decoder warm-up losses: {losses}")
+    if changed == 0:
+        raise AssertionError("the decoder warm-up changed no parameter")
+    # each iteration's loss encodes twice, the rays' samples and the TV
+    # sub-grid (as dnsjax's warm-up loss does), so two table gradients
+    expected = 2 * losses.shape[0]
+    if init_launches["scatter_add"] != expected:
+        raise AssertionError(f"decoder warm-up: {init_launches['scatter_add']} table gradients, "
+                             f"expected {expected}")
+    return slam, launches, init_launches
 
 
 def run_outputs(slam):
@@ -567,14 +697,16 @@ def run_outputs(slam):
     return {"extract_mesh": mesh_launches, "eval_2d": line["launches"]}
 
 
-def profile_slam(slam, n_iters: int = 20):
+def profile_slam(slam, n_iters: int = 20, name: str = "slam", idx=None):
     """torch.profiler over one mapping call of ``n_iters`` iterations and one
-    tracked frame of the finished run: wall, summed device time, device busy
-    share and the top device kernels by self time."""
+    tracked frame (frame ``idx``, default the last) of the finished run:
+    wall, summed device time, device busy share and the top device kernels
+    by self time. A tracked frame must run no table gradient."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    idx = len(slam.dataset) - 1
+    if idx is None:
+        idx = len(slam.dataset) - 1
     cur = slam._frame_to_device(slam.dataset[idx])
     slam.map_once(idx, cur, 2, "global", False)  # warm the window caches
     torch.cuda.synchronize()
@@ -582,12 +714,14 @@ def profile_slam(slam, n_iters: int = 20):
         "keystep_call": lambda: slam.map_once(idx, cur, n_iters, "global", False),
         "track_frame": lambda: slam.track_frame(idx, cur),
     }
-    for name, fn in phases.items():
+    for phase, fn in phases.items():
+        _reset_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _counts()
         events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
         dev_ms = sum(dev_us(e) for e in events) / 1e3
@@ -597,11 +731,15 @@ def profile_slam(slam, n_iters: int = 20):
                     sum(e.count for e in events if k in e.key)]
                 for k in ("hash_encode_fwd_kernel", "table_grad_kernel")}
         print("profile " + json.dumps(dict(
-            phase=name, iters=n_iters if name == "keystep_call" else 1, wall_ms=wall_ms,
-            device_ms=dev_ms, device_busy_share=dev_ms / wall_ms,
+            run=name, phase=phase, frame=idx, iters=n_iters if phase == "keystep_call" else 1,
+            track_iters=slam.track_iters[-1] if phase == "track_frame" else None,
+            wall_ms=wall_ms, device_ms=dev_ms, device_busy_share=dev_ms / wall_ms,
             kernel_launches=sum(e.count for e in events), port_kernels=ours,
+            wrapper_launches=launches,
             top=[(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in top],
         )), flush=True)
+        if phase == "track_frame" and (launches["scatter_add"] or ours["table_grad_kernel"][1]):
+            raise AssertionError(f"a tracked frame ran the table gradient: {launches}, {ours}")
 
 
 def main(argv=None):
@@ -662,6 +800,22 @@ def main(argv=None):
         for k, v in counts.items():
             results[k]["launches_by_path"][path] = v
     print(f"phase outputs wall {time.perf_counter() - t0:.2f} s", flush=True)
+    del slam
+    t0 = time.perf_counter()
+    parity_frames = min(args.end_frame or 12, 12)
+    parity, counts = run_parity(parity_frames)
+    for k, v in counts.items():
+        results[k]["launches_by_path"]["parity"] = v
+    profile_slam(parity, name="slam_parity", idx=parity_frames - 1)
+    print(f"phase parity wall {time.perf_counter() - t0:.2f} s", flush=True)
+    del parity
+    if args.end_frame is None or args.end_frame > 21:
+        t0 = time.perf_counter()
+        _, counts, init_counts = run_resume()
+        for k in results:
+            results[k]["launches_by_path"]["resume"] = counts[k]
+            results[k]["launches_by_path"]["decoder_init"] = init_counts[k]
+        print(f"phase resume wall {time.perf_counter() - t0:.2f} s", flush=True)
     imported = sorted(m for m in sys.modules if m in ("jax", "dnsjax")
                       or m.startswith(("jax.", "jaxlib", "dnsjax.", "_dnsjax_mesh_")))
     if imported:

@@ -3,14 +3,18 @@
 
 Reads the same YAML stack as ``dnsjax.cli.run`` (scene config over
 ``configs/slam.yaml``). ``--set key.path=value`` overrides single config
-values (YAML scalars), for short runs.
+values (YAML scalars), for short runs. ``--resume CKPT`` continues from a
+checkpoint of either package; ``--resume-latest`` from the output
+directory's ``model.npz``, else its highest ``model_N.npz``.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import random
+import re
 
 import numpy as np
 
@@ -47,6 +51,21 @@ def load_run_config(config_path: str, seed: int = 0, overrides=None, input_dir=N
     return apply_overrides(cfg, overrides)
 
 
+def latest_checkpoint(out: str):
+    """``model.npz`` in ``out`` if present, else the highest-numbered
+    ``model_N.npz`` (by the frame in its name, then mtime); None if none."""
+    final = os.path.join(out, "model.npz")
+    if os.path.exists(final):
+        return final
+
+    def frame_no(p):
+        m = re.search(r"model_(\d+)\.npz$", p)
+        return (int(m.group(1)) if m else -1, os.path.getmtime(p))
+
+    cands = sorted(glob.glob(os.path.join(out, "model*.npz")), key=frame_no)
+    return cands[-1] if cands else None
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="dnsjax_torch SLAM")
     parser.add_argument("config", type=str, help="scene config yaml")
@@ -59,13 +78,12 @@ def main(argv=None):
                         help="cuda (default) or cpu; cuda raises if no card is present")
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         help="override a config value, e.g. mapping.n_iters=4")
-    parser.add_argument("--resume", type=str, default=None,
-                        help="not ported yet (ROADMAP.md)")
+    parser.add_argument("--resume", type=str, default=None, metavar="CKPT",
+                        help="checkpoint (.npz) to resume from")
+    parser.add_argument("--resume-latest", action="store_true",
+                        help="resume from the newest checkpoint in the output dir "
+                             "(model.npz if present, else the highest model_N.npz)")
     args = parser.parse_args(argv)
-    if args.resume:
-        raise NotImplementedError(
-            "--resume is not ported yet (ROADMAP.md, Queue 1: remaining items, 1)"
-        )
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -74,7 +92,16 @@ def main(argv=None):
     cfg = load_run_config(args.config, args.seed, args.set, args.input)
     out = args.output or os.path.join(cfg.get("out_dir", "output"), cfg.get("scene", "scene"))
     slam = DNSSLAM(cfg, output_dir=out, device=args.device)
-    slam.run(end_frame=args.end_frame)
+    start = 0
+    if args.resume or args.resume_latest:
+        ckpt = args.resume
+        if args.resume_latest:
+            ckpt = latest_checkpoint(out)
+            if ckpt is None:
+                parser.error(f"--resume-latest: no model*.npz found in {out}")
+        start = slam.resume(ckpt)
+        print(f"resumed from {ckpt} at frame {start}", flush=True)
+    slam.run(end_frame=args.end_frame, start_frame=start)
     return slam
 
 

@@ -48,6 +48,17 @@
 // The same kernel serves the per-level scatter-add of values as given
 // (ops/scatter.py:scatter_add, the contract of dnsjax's dense_matmul_scatter):
 // idx (L, M) rows without offset, g (L, M, F) values, no rounding.
+//
+// Level draw (model.grid.grad_levels: 1, dnsjax/ops/hashgrid.py:365-377):
+// each point keeps one level, l* = min(int(u2 * L), L - 1) with
+//   u2 = ((idx[n,0,0] * 0x9E3779B9) ^ (idx[n,L-1,C-1] * (0x85EBCA6B + 2))) >> 8,
+// times 2^-24 (the cell hash with salt 1), and that level's contribution
+// (one drawn corner, or all C) is multiplied by L. dnsjax runs this mode as
+// its flat XLA scatter of float32 values, so it never rounds. The threads
+// are K a point (K = 1 one corner, C all corners), not K a (point, level):
+// a thread reads the two ids of the draw (one 32-byte sector each, shared
+// by the point's K threads) and then only the drawn level's ids, weights
+// and cotangent, so the levels not drawn cost no bytes.
 
 #include "common.cuh"
 
@@ -108,27 +119,39 @@ __device__ __forceinline__ void red_add(float* dst, const float* v) {
     atomicAdd(dst, v[0]);
 }
 
-// C corners (4 tet, 8 trilinear; 1 for GIVEN), F features (2, 8, 16).
+// C corners (4 tet, 8 trilinear; 1 for GIVEN), F features (2, 8, 16);
+// LEVEL: one drawn level a point (see above).
 // 32-bit indexing: the wrapper checks N*L*C*F and L*T*F < 2^31.
-template <int C, int CORNERS, int ROUND, int F>
+template <int C, int CORNERS, int ROUND, int F, bool LEVEL>
 __global__ void table_grad_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                                   const float* __restrict__ g, float* __restrict__ out,
                                   int N, int L, int T) {
   constexpr int V = F % 4 == 0 ? 4 : (F % 2 == 0 ? 2 : 1);  // floats a vector access
-  constexpr int K = CORNERS == ALL ? C : 1;  // threads a (n, l)
+  constexpr int K = CORNERS == ALL ? C : 1;  // threads a (n, l), or a point under LEVEL
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int total = N * L * K;
+  const int total = (LEVEL ? N : N * L) * K;
   const unsigned int active = __ballot_sync(0xffffffffu, t < total);
   if (t >= total) return;
-  const int nl = t / K;  // (n, l) row of the residuals; GIVEN: (l, n) of idx (L, N)
-  int n, l;
+  int n, l, nl;  // nl: (n, l) row of the residuals; GIVEN: (l, n) of idx (L, N)
   if constexpr (CORNERS == GIVEN) {
+    nl = t;
     l = t / N;
     n = t - l * N;
+  } else if constexpr (LEVEL) {
+    n = t / K;
+    // dnsjax/ops/hashgrid.py:_stateless_uniform(idx[:, 0, 0], idx[:, -1, -1], 1)
+    const unsigned int a = (unsigned int)__ldg(idx + n * L * C);
+    const unsigned int b = (unsigned int)__ldg(idx + (n * L + L - 1) * C + C - 1);
+    const unsigned int bits = (a * 0x9E3779B9u) ^ (b * (0x85EBCA6Bu + 2u));
+    const float u2 = (float)(bits >> 8) * (1.0f / 16777216.0f);
+    l = min((int)(u2 * (float)L), L - 1);
+    nl = n * L + l;
   } else {
+    nl = t / K;
     n = nl / L;
     l = nl - n * L;
   }
+  const int e = nl * K + (t - (t / K) * K);  // this thread's residual: (n, l[, c])
   // the F values of g first: their loads are in flight while the ids arrive
   float v[F];
 #pragma unroll
@@ -139,9 +162,9 @@ __global__ void table_grad_kernel(const int* __restrict__ idx, const float* __re
     row = idx[t];
     slot = n;
   } else if constexpr (CORNERS == ALL) {
-    row = __ldg(idx + t) - l * T;
-    scale = __ldg(w + t);
-    slot = n * C + (t - nl * C);
+    row = __ldg(idx + e) - l * T;
+    scale = __ldg(w + e);
+    slot = n * C + (e - nl * C);
   } else {
     int id[C];
     float wt[C];
@@ -179,7 +202,8 @@ __global__ void table_grad_kernel(const int* __restrict__ idx, const float* __re
   const bool keep = row >= 0 && row < T;
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    const float x = CORNERS == ALL ? scale * v[f] : v[f];
+    float x = CORNERS == ALL ? scale * v[f] : v[f];
+    if constexpr (LEVEL) x = x * (float)L;  // (w * g) * L, as dnsjax multiplies
     v[f] = round_value<ROUND>(x, (unsigned int)row, (unsigned int)slot, (unsigned int)f,
                               (unsigned int)l);
   }
@@ -205,23 +229,23 @@ __global__ void table_grad_kernel(const int* __restrict__ idx, const float* __re
   for (int q = 0; q < F / V; ++q) red_add<V>(op + q * V, v + q * V);
 }
 
-template <int C, int CORNERS, int ROUND>
+template <int C, int CORNERS, int ROUND, bool LEVEL = false>
 static int launch(const void* idx, const void* w, const void* g, void* out, int N, int L,
                   int T, int F, cudaStream_t stream) {
-  const long long total = (long long)N * L * (CORNERS == ALL ? C : 1);
+  const long long total = (long long)N * (LEVEL ? 1 : L) * (CORNERS == ALL ? C : 1);
   const unsigned int blocks = dnsjax_blocks(total);
   const int* i = (const int*)idx;
   const float* wp = (const float*)w;
   const float* gp = (const float*)g;
   float* o = (float*)out;
   if (F == 2)
-    table_grad_kernel<C, CORNERS, ROUND, 2><<<blocks, DNSJAX_THREADS, 0, stream>>>(
+    table_grad_kernel<C, CORNERS, ROUND, 2, LEVEL><<<blocks, DNSJAX_THREADS, 0, stream>>>(
         i, wp, gp, o, N, L, T);
   else if (F == 8)
-    table_grad_kernel<C, CORNERS, ROUND, 8><<<blocks, DNSJAX_THREADS, 0, stream>>>(
+    table_grad_kernel<C, CORNERS, ROUND, 8, LEVEL><<<blocks, DNSJAX_THREADS, 0, stream>>>(
         i, wp, gp, o, N, L, T);
   else if (F == 16)
-    table_grad_kernel<C, CORNERS, ROUND, 16><<<blocks, DNSJAX_THREADS, 0, stream>>>(
+    table_grad_kernel<C, CORNERS, ROUND, 16, LEVEL><<<blocks, DNSJAX_THREADS, 0, stream>>>(
         i, wp, gp, o, N, L, T);
   else
     return (int)cudaErrorInvalidValue;
@@ -240,15 +264,24 @@ static int launch_rounding(const void* idx, const void* w, const void* g, void* 
 
 // corners: 0 one sampled corner, 1 all C, 2 values as given (C = 1, idx
 // (L, N) rows without offset, g (L, N, F), w unused, round 0). round: 0
-// float32, 1 nearest bf16, 2 stochastic bf16. F in {2, 8, 16}; idx, w
+// float32, 1 nearest bf16, 2 stochastic bf16. level: 1 keeps one drawn
+// level a point (corners 0 or 1, round 0, L > 1). F in {2, 8, 16}; idx, w
 // and g 16-byte aligned (the wrapper aligns them). out is zeroed by the
-// caller. Returns cudaGetLastError(), or cudaErrorInvalidValue for a C or F
-// the kernel does not take.
+// caller. Returns cudaGetLastError(), or cudaErrorInvalidValue for a mode,
+// C or F the kernel does not take.
 extern "C" int dnsjax_table_grad(const void* idx, const void* w, const void* g, void* out,
                                  int N, int L, int T, int F, int C, int corners, int round,
-                                 void* stream) {
+                                 int level, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((long long)N * L == 0) return (int)cudaGetLastError();
+  if (level) {
+    if (round != AS_F32 || L < 2) return (int)cudaErrorInvalidValue;
+    if (corners == ONE && C == 4) return launch<4, ONE, AS_F32, true>(idx, w, g, out, N, L, T, F, s);
+    if (corners == ONE && C == 8) return launch<8, ONE, AS_F32, true>(idx, w, g, out, N, L, T, F, s);
+    if (corners == ALL && C == 4) return launch<4, ALL, AS_F32, true>(idx, w, g, out, N, L, T, F, s);
+    if (corners == ALL && C == 8) return launch<8, ALL, AS_F32, true>(idx, w, g, out, N, L, T, F, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (corners == GIVEN && C == 1) return launch<1, GIVEN, AS_F32>(idx, w, g, out, N, L, T, F, s);
   if (corners == ONE && C == 4) return launch_rounding<4, ONE>(idx, w, g, out, N, L, T, F, round, s);
   if (corners == ONE && C == 8) return launch_rounding<8, ONE>(idx, w, g, out, N, L, T, F, round, s);

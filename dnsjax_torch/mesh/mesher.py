@@ -3,7 +3,8 @@ query on the device, marching tetrahedra and cleanup on the host.
 
 A lattice over the marching-cubes bound (+0.05 pad) is evaluated in chunks
 of ``meshing.points_batch_size`` points. Each chunk is projected into every
-valid keyframe: the nearest half-resolution feature row, the keyframe's
+valid keyframe: the half-resolution feature row (nearest tap, or bilinear
+with ``tpu.feature_taps: 4``), the keyframe's
 depth and label, a per-view merge MLP, the mean over observing views and
 the last-seen label; then the class-dispatched fine decoder (S = 1) gives
 occupancy and the color head the color. Out-of-bound points get occupancy
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -38,7 +40,7 @@ from dnsjax_torch.mesh.export import write_ply
 from dnsjax_torch.mesh.marching import marching_tetrahedra
 from dnsjax_torch.models.decoder import DecoderSpec, fine_apply, merge_apply, pos_encode
 from dnsjax_torch.models.encoder import encode_images
-from dnsjax_torch.models.features import _row_gather, nearest_sample
+from dnsjax_torch.models.features import _row_gather, bilinear_sample, nearest_sample
 from dnsjax_torch.ops.mlp import mlp_apply
 
 _ROADMAP = "ROADMAP.md, Queue 1: remaining items"
@@ -53,7 +55,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
          "meshing.depth_test with meshing.use_est_depth", 2),
         (bool(m.get("show_forecast", False)), "meshing.show_forecast", 2),
         (bool(m.get("get_mask_use_all_frames", False)), "meshing.get_mask_use_all_frames", 2),
-        (int(tpu.get("feature_taps", 4)) != 1, "tpu.feature_taps: 4 in the mesher", 1),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -95,9 +96,17 @@ class Mesher:
         self.label = bool(m.get("label", True))
         self.element = bool(m.get("element", False))
         self.depth_test = bool(m.get("depth_test", False))
+        # feature taps as in training (tpu.feature_taps): 1 nearest, 4 bilinear
+        self.feature_taps = int(tpu.get("feature_taps", 4))
         # fused view rows: [feats | depth | label] in one half-res bf16 map
-        # per keyframe, one gather row per view-point (see fuse_view_maps)
-        self.fuse_rows = bool(tpu.get("mesh_fused_rows", True))
+        # per keyframe, one gather row per view-point (see fuse_view_maps);
+        # they hold one tap, so 4 taps take the separate gathers, as in dnsjax
+        self.fuse_rows = bool(tpu.get("mesh_fused_rows", self.feature_taps == 1))
+        if self.fuse_rows and self.feature_taps != 1:
+            warnings.warn("tpu.mesh_fused_rows=true requires tpu.feature_taps=1 "
+                          f"(got {self.feature_taps}); using separate full-res gathers "
+                          "instead", stacklevel=2)
+            self.fuse_rows = False
         # skip views whose frustum provably sees no point of the chunk
         self.view_skip = bool(tpu.get("mesh_view_skip", True))
         scale = float(cfg.get("scale", 1))
@@ -189,7 +198,8 @@ class Mesher:
                 kf_d = row[:, -2].to(torch.float32)
                 lab_f = row[:, -1].to(torch.float32)
             else:
-                code = nearest_sample(maps, gx, gy)
+                sampler = bilinear_sample if self.feature_taps == 4 else nearest_sample
+                code = sampler(maps, gx, gy)
                 ui = torch.clamp(u, 0, W - 1).to(torch.int64)
                 vi = torch.clamp(v, 0, H - 1).to(torch.int64)
                 dl = _row_gather(views.depth_label[k], vi, ui)  # (B, 2)

@@ -67,6 +67,24 @@ def params_from_numpy(flat: Dict[str, np.ndarray], prefix: str = "params", devic
     return root
 
 
+def restore_params(template, ckpt: Dict[str, Any], prefix: str = "params"):
+    """``template``'s structure with each leaf read from the checkpoint dict
+    under ``prefix``, on the template leaf's device; a key missing from the
+    file keeps the template's (fresh) value, as dnsjax's partial restore."""
+
+    def rebuild(node, path):
+        if isinstance(node, dict):
+            return {k: rebuild(v, path + (f"['{k}']",)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v, path + (f"[{i}]",)) for i, v in enumerate(node))
+        key = prefix + "/" + "/".join(path)
+        if key not in ckpt:
+            return node
+        return torch.tensor(np.asarray(ckpt[key]), device=node.device)
+
+    return rebuild(template, ())
+
+
 def save_checkpoint(path: str, params, enc_params, estimate_c2w, gt_c2w,
                     keyframes=None, idx: int = 0, scene: str = "",
                     exist_decoders: Optional[Dict[int, int]] = None) -> None:
@@ -95,7 +113,8 @@ def save_checkpoint(path: str, params, enc_params, estimate_c2w, gt_c2w,
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The raw dict (arrays + ``meta``); use params_from_numpy for params."""
+    """The raw dict (arrays + ``meta``); use params_from_numpy or
+    restore_params for params."""
     with np.load(path, allow_pickle=False) as z:
         data = {k: z[k] for k in z.files}
     data["meta"] = json.loads(bytes(data.pop("meta_json").tobytes()).decode("utf-8"))

@@ -2,9 +2,13 @@
 
 ResNet-18's first stage only: conv 7x7 stride 2 (3 -> 64) + folded BN +
 ReLU, never trained. The default filter bank is dnsjax's procedural Gabor /
-centre-surround bank (same numbers); ``DNSJAX_RESNET18_NPZ`` may point to
-pretrained conv1 + bn1 weights instead. Images and features are NHWC and the
-kernel HWIO, as in dnsjax.
+centre-surround bank (same numbers); ``tpu.encoder_init: random`` draws a
+seeded He-normal kernel instead, from a ``torch.Generator``, so its numbers
+are not dnsjax's (torch cannot reproduce ``jax.random.normal``: a test
+carries dnsjax's draw across with ``params_from_numpy``).
+``DNSJAX_RESNET18_NPZ`` may point to pretrained conv1 + bn1 weights, and
+then takes precedence over both. Images and features are NHWC and the kernel
+HWIO, as in dnsjax.
 """
 
 from __future__ import annotations
@@ -51,9 +55,12 @@ def _gabor_bank() -> np.ndarray:
     return (w * np.sqrt(2.0)).astype(np.float32)
 
 
-def init_encoder_params(mode: str = "gabor", device="cpu") -> Dict[str, torch.Tensor]:
+def init_encoder_params(mode: str = "gabor", seed: int = 0,
+                        device="cpu") -> Dict[str, torch.Tensor]:
     """{"w": (7,7,3,64) HWIO, "scale": (64,), "bias": (64,)}; BN is folded:
-    y = relu(conv(x) * scale + bias)."""
+    y = relu(conv(x) * scale + bias). ``mode``: "gabor" (the procedural
+    bank) or anything else for the seeded He-normal draw (std
+    sqrt(2 / 147)), as dnsjax reads it."""
     npz_path = os.environ.get("DNSJAX_RESNET18_NPZ", "")
     if npz_path and os.path.exists(npz_path):
         z = np.load(npz_path)
@@ -69,10 +76,11 @@ def init_encoder_params(mode: str = "gabor", device="cpu") -> Dict[str, torch.Te
         scale = np.ones(64, np.float32)
         bias = np.zeros(64, np.float32)
     else:
-        raise NotImplementedError(
-            f"tpu.encoder_init: {mode!r} is not ported yet (ROADMAP.md, "
-            "Queue 1: remaining items, 1)"
-        )
+        gen = torch.Generator().manual_seed(int(seed))
+        fan_in = 7 * 7 * 3
+        w = (torch.randn((7, 7, 3, 64), generator=gen) * np.sqrt(2.0 / fan_in)).numpy()
+        scale = np.ones(64, np.float32)
+        bias = np.zeros(64, np.float32)
     return {k: torch.as_tensor(v, device=device) for k, v in
             (("w", w), ("scale", scale), ("bias", bias))}
 

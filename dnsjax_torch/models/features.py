@@ -2,9 +2,9 @@
 
 Project sample points into reference views, gather encoder features from
 the half-resolution maps and fuse them with the merge MLP. Both lookups
-are here: the nearest tap (``feature_taps: 1``, the tracker's and mapper's
-setting) and the bilinear 4 taps that dnsjax's full-frame renderer always
-uses.
+are here: the nearest tap (``feature_taps: 1``, the shipped TPU profile)
+and the bilinear 4 taps (``feature_taps: 4``, dnsjax's default and the
+reference's, which its full-frame renderer always uses).
 """
 
 from __future__ import annotations
@@ -22,6 +22,26 @@ def _row_gather(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.
     """Rows of (H, W, C) at integer (yi, xi), as one flat row gather."""
     H, W = img.shape[0], img.shape[1]
     return img.reshape(H * W, img.shape[2])[yi.to(torch.int64) * W + xi.to(torch.int64)]
+
+
+def _bilinear(rows, x: torch.Tensor, y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Bilinear sample at continuous coords clamped to an H x W map whose
+    rows at integer (yi, xi) ``rows`` gathers."""
+    x = torch.clamp(x, 0.0, W - 1.0)
+    y = torch.clamp(y, 0.0, H - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    return (rows(y0, x0) * (1 - fx) * (1 - fy) + rows(y0, x1) * fx * (1 - fy)
+            + rows(y1, x0) * (1 - fx) * fy + rows(y1, x1) * fx * fy)
+
+
+def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of (H, W, C) at continuous pixel coords, clamped."""
+    return _bilinear(lambda yi, xi: _row_gather(img, yi, xi), x, y, img.shape[0], img.shape[1])
 
 
 def nearest_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -75,20 +95,7 @@ def match_features_batched(
     flat = feats_half.reshape(T * R * Hf * Wf, C)
     base = (torch.arange(T * R, device=pts_w.device) * (Hf * Wf)).reshape(T, R, 1)
     if taps == 4:
-        x = torch.clamp(gx, 0.0, Wf - 1.0)
-        y = torch.clamp(gy, 0.0, Hf - 1.0)
-        x0 = torch.floor(x).to(torch.int64)
-        y0 = torch.floor(y).to(torch.int64)
-        x1 = torch.clamp(x0 + 1, max=Wf - 1)
-        y1 = torch.clamp(y0 + 1, max=Hf - 1)
-        fxw = (x - x0)[..., None]
-        fyw = (y - y0)[..., None]
-        code = (
-            flat[base + y0 * Wf + x0] * (1 - fxw) * (1 - fyw)
-            + flat[base + y0 * Wf + x1] * fxw * (1 - fyw)
-            + flat[base + y1 * Wf + x0] * (1 - fxw) * fyw
-            + flat[base + y1 * Wf + x1] * fxw * fyw
-        )
+        code = _bilinear(lambda yi, xi: flat[base + yi * Wf + xi], gx, gy, Hf, Wf)
     else:
         xi = torch.clamp(torch.round(gx), 0, Wf - 1).to(torch.int64)
         yi = torch.clamp(torch.round(gy), 0, Hf - 1).to(torch.int64)

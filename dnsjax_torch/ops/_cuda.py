@@ -43,8 +43,8 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pts, table, res, out, feats, idx, w, aux, N, L, T, F, tet, bf16, stream
     "dnsjax_hash_encode_fwd": (_VP,) * 8 + (_I,) * 6 + (_VP,),
-    # idx, w, g, out, N, L, T, F, C, corners, rounding, stream
-    "dnsjax_table_grad": (_VP,) * 4 + (_I,) * 7 + (_VP,),
+    # idx, w, g, out, N, L, T, F, C, corners, rounding, level draw, stream
+    "dnsjax_table_grad": (_VP,) * 4 + (_I,) * 8 + (_VP,),
     # sorted idx, sorted vals, out, scratch, M, R, F, V, stream
     "dnsjax_sorted_scatter_add": (_VP,) * 4 + (_I,) * 4 + (_VP,),
     # the sorted kernel's tile (contributions), which sizes its scratch

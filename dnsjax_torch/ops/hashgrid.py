@@ -59,11 +59,6 @@ class HashGridSpec:
     gather: str = "xla"
 
     def __post_init__(self):
-        if self.grad_levels != 0:
-            raise NotImplementedError(
-                "model.grid.grad_levels: 1 is not ported yet "
-                "(ROADMAP.md, Queue 1: remaining items, 1)"
-            )
         if self.interp not in ("tet", "trilinear"):
             raise ValueError(f"interp={self.interp!r}: expected tet|trilinear")
         if self.scatter not in _SCATTER_MODES:
@@ -216,6 +211,15 @@ def _table_grad_contribs(spec: HashGridSpec, idx, w, g):
     u = _stateless_uniform(idx[..., 0], idx[..., -1], 0)
     c_star = torch.clamp((cdf < u[..., None]).sum(-1), 0, C - 1)
     return torch.gather(idx, -1, c_star[..., None])[..., 0], g
+
+
+def _level_draw(spec: HashGridSpec, idx: torch.Tensor) -> torch.Tensor:
+    """(N,) level each point keeps under ``grad_levels: 1``: l* = min(int(u2
+    * L), L - 1), u2 the cell hash (salt 1) of the point's first row (level
+    0, corner 0) and last row (level L-1, corner C-1), as the reference
+    draws it."""
+    u2 = _stateless_uniform(idx[:, 0, 0], idx[:, -1, -1], 1)
+    return torch.clamp((u2 * spec.n_levels).to(torch.int64), max=spec.n_levels - 1)
 
 
 def _position_dfrac(spec: HashGridSpec, feats, aux) -> torch.Tensor:

@@ -18,6 +18,13 @@ gradient equals the twin's up to the order of the float32 atomics.
 ``scatter_add`` (dnsjax's ``dense_matmul_scatter`` contract) launches the
 same kernel on values as given.
 
+``model.grid.grad_levels: 1`` keeps one drawn level a point, its
+contribution times L (``hashgrid._level_draw``; dnsjax/ops/hashgrid.py:
+365-377). dnsjax runs that mode as its flat XLA scatter of float32 values,
+never through the Pallas kernel, so no ``scatter`` mode rounds in it; on the
+card it is the same kernel's level-draw mode, one launch, which reads only
+the drawn level's residuals.
+
 ``sorted_scatter_add`` ports dnsjax/ops/scatter.py:sorted_scatter_add, whose
 TPU kernel ``_kernel`` scattered row-sorted contributions block by block
 through one-hot matmuls. Here the sort stays outside the kernel, as in
@@ -34,7 +41,7 @@ import functools
 
 import torch
 
-from dnsjax_torch.ops.hashgrid import _table_grad_contribs
+from dnsjax_torch.ops.hashgrid import _level_draw, _table_grad_contribs
 
 LAUNCHES = 0  # kernel launches by table_grad and scatter_add (twins do not count)
 SORTED_LAUNCHES = 0  # kernel launches by sorted_segment_sum
@@ -74,6 +81,10 @@ def stochastic_round_bf16(x: torch.Tensor, bits16: torch.Tensor) -> torch.Tensor
     return u.to(torch.int32).view(torch.float32)
 
 
+def _draws_level(spec) -> bool:
+    return spec.grad_levels == 1 and spec.n_levels > 1
+
+
 def table_grad_inputs(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     """Per-level scatter inputs of the table gradient, in plain torch:
     (li (L, M) int32 rows, lv (L, M, F) float32 values), M = N (stochastic
@@ -83,11 +94,24 @@ def table_grad_inputs(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor)
     reference computes: ``pallas_sr`` stochastically rounds every
     contribution to the bf16 grid with the reference's salts and slot order
     (contributions laid out (L, N[*C])); ``pallas`` rounds to nearest bf16;
-    ``pallas_split`` and ``xla`` scatter float32 values.
+    ``pallas_split`` and ``xla`` scatter float32 values. Under
+    ``grad_levels: 1`` only the drawn level of each point keeps its
+    contributions, times L, as float32 (rounding in no mode); the other
+    levels' rows are -1, which the scatter drops.
     """
     L, T, F = spec.n_levels, spec.table_size, spec.n_features
     scatter_idx, contrib = _table_grad_contribs(spec, idx.to(torch.int64), w, g)
     off = torch.arange(L, device=idx.device) * T
+    if _draws_level(spec):
+        # the drawn level's contribution times L, summed over the levels as
+        # the reference sums it (so signed zeros match too); the other
+        # levels' rows go to -1
+        hot = torch.arange(L, device=idx.device) == _level_draw(spec, idx)[:, None]  # (N, L)
+        ext = (1,) * (scatter_idx.dim() - 2)
+        hot = hot.reshape(hot.shape + ext)
+        picked = (contrib * hot[..., None]).sum(1, keepdim=True) * float(L)
+        contrib = torch.where(hot[..., None], picked, 0.0)
+        scatter_idx = torch.where(hot, scatter_idx, off.reshape((1, L) + ext) - 1)
     if scatter_idx.dim() == 2:  # stochastic corner: (N, L); contrib (N, L, F)
         li = (scatter_idx - off[None, :]).t()
         lv = contrib.transpose(0, 1)
@@ -96,7 +120,9 @@ def table_grad_inputs(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor)
         lv = contrib.transpose(0, 1).reshape(L, -1, F)
     li = li.to(torch.int32).contiguous()
     lv = lv.to(torch.float32).contiguous()
-    if spec.scatter == "pallas_sr":
+    # under grad_levels: 1 dnsjax's flat scatter adds float32 values
+    rounding = "xla" if spec.grad_levels == 1 else spec.scatter
+    if rounding == "pallas_sr":
         dev = li.device
         bits = sr_bits16(
             li[..., None],
@@ -105,7 +131,7 @@ def table_grad_inputs(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor)
             torch.arange(L, device=dev)[:, None, None],
         )
         lv = stochastic_round_bf16(lv, bits)
-    elif spec.scatter == "pallas":
+    elif rounding == "pallas":
         lv = lv.to(torch.bfloat16).to(torch.float32)
     return li, lv
 
@@ -122,7 +148,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding) -> None:
+def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding, level=False) -> None:
     """One launch of ``dnsjax_table_grad`` adding into the zeroed ``out``."""
     global LAUNCHES
     from dnsjax_torch.ops import _cuda
@@ -135,7 +161,8 @@ def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding) -> None:
         return
     err = _cuda.library().dnsjax_table_grad(
         idx.data_ptr(), w.data_ptr() if w is not None else None, g.data_ptr(),
-        out.data_ptr(), N, L, T, F, C, corners, rounding, _cuda.stream_ptr(out.device),
+        out.data_ptr(), N, L, T, F, C, corners, rounding, int(level),
+        _cuda.stream_ptr(out.device),
     )
     _cuda.check(err, "dnsjax_table_grad")
     LAUNCHES += 1
@@ -148,7 +175,8 @@ def table_grad(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tor
     idx (N, L, C) int32 flat rows with the level offset, w (N, L, C) float32
     (the encode's residuals), g (N, L, F) float32 cotangent. CPU tensors
     take the plain twin. CUDA tensors launch ``dnsjax_table_grad``
-    (csrc/scatter.cu) once on a zeroed table, and never fall back.
+    (csrc/scatter.cu) once on a zeroed table, and never fall back; under
+    ``grad_levels: 1`` in its level-draw mode, float32 values.
     """
     if all(t.device.type == "cpu" for t in (idx, w, g)):
         return table_grad_plain(spec, idx, w, g)
@@ -169,8 +197,9 @@ def table_grad(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tor
         raise ValueError(f"table_grad: {C} corners, expected 4 (tet) or 8 (trilinear)")
     out = torch.zeros((L, T, F), dtype=torch.float32, device=dev)
     corners = _ONE if spec.grad_corners < C else _ALL
-    _launch(_aligned(idx), _aligned(w), _aligned(g), out, N, L, T, F, C, corners,
-            _ROUNDING[spec.scatter])
+    rounding = 0 if spec.grad_levels == 1 else _ROUNDING[spec.scatter]
+    _launch(_aligned(idx), _aligned(w), _aligned(g), out, N, L, T, F, C, corners, rounding,
+            _draws_level(spec))
     return out
 
 

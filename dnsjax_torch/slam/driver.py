@@ -2,16 +2,20 @@
 strict-sync path of dnsjax/slam/driver.py.
 
 One host loop interleaves tracking and mapping: frames 0-1 take their GT
-poses, frame 0 bootstraps the map, every later frame is tracked (LM, with a
-retry from the raw previous pose on a loss outlier), and every
+poses, frame 0 bootstraps the map, every later frame is tracked (Adam or
+LM, with a retry from the raw previous pose on a loss outlier), and every
 ``optimize_every_n_frames``-th frame (and the last) runs one keystep of two
 outer mapping calls (overlap-selected, then randomly selected keyframe
 windows). Windows are padded to ``n_joint_optimize_frames`` slots so the
-ray budget splits as in dnsjax. Keyframes are inserted every
-``choose_keyframe_every`` frames; the run ends with ``model.npz``. After a
-keystep, ``mapping.vis_every`` writes a full-frame residual panel and
-``mapping.mesh_every`` a mesh; both read the map and change nothing, and are
-timed apart from tracking and mapping.
+ray budget splits as in dnsjax. Past frame 50, a mapping call whose window
+brings a new class decoder that the current frame shows first warms the
+new decoders up on that frame (``mapper.make_decoder_init_fn``). Keyframes
+are inserted every ``choose_keyframe_every`` frames; the run ends with
+``model.npz``. After a keystep, ``mapping.vis_every`` writes a full-frame
+residual panel and ``mapping.mesh_every`` a mesh; both read the map and
+change nothing, and are timed apart from tracking and mapping.
+``resume`` restores a checkpoint of either package; ``run(start_frame=k)``
+then continues from frame k.
 
 Config values the port does not implement raise ``NotImplementedError``
 naming their ROADMAP.md item, rather than silently running something else.
@@ -31,11 +35,16 @@ from dnsjax_torch.data import get_dataset
 from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, invert_se3, tensor_from_camera, tensor_from_camera_np
 from dnsjax_torch.mesh.mesher import Mesher, class_palette
 from dnsjax_torch.mesh.mesher import check_supported as check_mesher_supported
-from dnsjax_torch.models.checkpoint import save_checkpoint
+from dnsjax_torch.models.checkpoint import load_checkpoint, restore_params, save_checkpoint
 from dnsjax_torch.models.decoder import DecoderSpec, decoder_param_count, init_decoder_params
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
 from dnsjax_torch.slam.keyframes import KeyframeStore
-from dnsjax_torch.slam.mapper import MapConfig, make_map_fn, make_overlap_score_fn
+from dnsjax_torch.slam.mapper import (
+    MapConfig,
+    make_decoder_init_fn,
+    make_map_fn,
+    make_overlap_score_fn,
+)
 from dnsjax_torch.slam.sampling import class_sorted_pixels
 from dnsjax_torch.slam.tracker import TrackConfig, Tracker, pose_init_const_velocity
 
@@ -57,7 +66,7 @@ def load_bound(cfg: Dict[str, Any]) -> np.ndarray:
 def check_supported(cfg: Dict[str, Any]) -> None:
     """Raise NotImplementedError for every config value outside the slice."""
     tpu = cfg.get("tpu", {}) or {}
-    tr, mp = cfg["tracking"], cfg["mapping"]
+    mp = cfg["mapping"]
     sync = str(cfg.get("sync_method", "strict"))
     unsupported = [
         (sync != "strict", f"sync_method: {sync}", 3),
@@ -66,11 +75,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
         (int(tpu.get("data_parallel", 1)) > 1, "tpu.data_parallel > 1", 4),
         (int(tpu.get("map_dp", 1)) > 1, "tpu.map_dp > 1", 4),
         (bool(tpu.get("mesh_async", False)), "tpu.mesh_async", 4),
-        (int(tpu.get("feature_taps", 4)) != 1, "tpu.feature_taps != 1", 1),
-        (str(tr.get("method", "adam")) != "lm", "tracking.method: adam", 1),
-        (int(tr.get("lm_patience", 0)) > 0, "tracking.lm_patience > 0", 1),
-        (int(cfg["model"]["grid"].get("grad_levels", 0)) != 0, "model.grid.grad_levels: 1", 1),
-        (str(tpu.get("encoder_init", "gabor")) != "gabor", "tpu.encoder_init", 1),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -119,21 +123,26 @@ class DNSSLAM:
             else torch.float32
         )
         self.fix_refer_bug = bool(tpu.get("fix_refer_frame_bug", True))
+        feature_taps = int(tpu.get("feature_taps", 4))
 
         seed = int(cfg.get("seed", 0))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         init_gen = torch.Generator().manual_seed(seed)
         self.params = init_decoder_params(self.spec, init_gen, self.device)
-        self.enc_params = init_encoder_params(device=self.device)
+        self.enc_params = init_encoder_params(str(tpu.get("encoder_init", "gabor")), seed,
+                                              self.device)
 
         ds = self.dataset
         tr, mp, trn = cfg["tracking"], cfg["mapping"], cfg["training"]
         cam = dict(H=ds.H, W=ds.W, fx=ds.fx, fy=ds.fy, cx=ds.cx, cy=ds.cy)
         self.track_cfg = TrackConfig(
-            **cam, n_pixels=int(tr["n_pixels"]),
+            **cam, n_iters=int(tr["n_iters"]), n_pixels=int(tr["n_pixels"]),
             n_samples=int(trn["n_samples_ray"]), n_surface=int(trn["n_surface_ray"]),
-            ignore_edge=int(tr.get("ignore_edge", 20)), feature_taps=1,
-            lm_iters=int(tr.get("lm_iters", 10)),
+            ignore_edge=int(tr.get("ignore_edge", 20)), cam_lr=float(tr["cam_lr"]),
+            separate_lr=bool(cfg.get("seperate_LR", False)),
+            lr_decay=float(tr.get("lr_decay", 1.0)), feature_taps=feature_taps,
+            patience=int(tr.get("patience", 0)), method=str(tr.get("method", "adam")),
+            lm_iters=int(tr.get("lm_iters", 10)), lm_patience=int(tr.get("lm_patience", 0)),
             lm_lambda0=float(tr.get("lm_lambda0", 1e-3)),
             lm_up=float(tr.get("lm_up", 5.0)), lm_down=float(tr.get("lm_down", 0.5)),
             lambda_p=float(trn["lambda_color"]), lambda_d=float(trn["lambda_depth"]),
@@ -148,9 +157,11 @@ class DNSSLAM:
             lambda_fs=float(trn["lambda_fs"]), lambda_op=float(trn["lambda_opacity"]),
             smooth_pts=int(trn["smooth_pts"]),
             smooth_every=int(trn.get("smooth_every", 1)),
-            opacity_sigma=float(trn["opacity_sigma"]), feature_taps=1,
+            opacity_sigma=float(trn["opacity_sigma"]), feature_taps=feature_taps,
         )
         self.tracker = Tracker(self.spec, self.track_cfg, self.compute_dtype)
+        self.decoder_init_fn = make_decoder_init_fn(self.spec, self.map_cfg,
+                                                    compute_dtype=self.compute_dtype)
         self.overlap_fn = make_overlap_score_fn(self.map_cfg)
         self._map_fns: Dict[Any, Any] = {}
 
@@ -181,6 +192,8 @@ class DNSSLAM:
         self._refer_w2c: Optional[torch.Tensor] = None
         self._pre_color: Optional[torch.Tensor] = None
         self.track_times: List[float] = []
+        self.track_iters: List[int] = []  # iterations each tracked frame ran
+        self.decoder_inits: List[Dict[str, Any]] = []  # warm-ups: frame, classes
         self.map_times: List[float] = []
         self.vis_times: List[float] = []
         self.mesh_times: List[float] = []
@@ -380,11 +393,9 @@ class DNSSLAM:
         new_decoders = self._set_decoder_counts(present)
         if self.first_frame_optimized and new_decoders and idx > 50:
             cur_classes = set(np.unique(cur["host"]["label"]).tolist())
-            if any(c in cur_classes for c in new_decoders):
-                raise NotImplementedError(
-                    f"fine-decoder warm-up (make_decoder_init_fn) is not ported yet "
-                    f"({_ROADMAP}, 1)"
-                )
+            warm = [c for c in new_decoders if c in cur_classes]
+            if warm:
+                self.decoder_init(cur, cur_c2w, warm)
         if new_decoders:
             window["lt_gate_iter"] = n_iters // 2
 
@@ -399,6 +410,20 @@ class DNSSLAM:
                     continue  # padding slot, or the frozen oldest frame
                 self.keyframes.update_pose(sid, c2w_new[i])
         return aux, c2w_new[-1]
+
+    def decoder_init(self, cur, c2w: torch.Tensor, classes: List[int]) -> torch.Tensor:
+        """Warm the decoders of ``classes`` up on the current frame (its
+        class-sorted pixels and encoder features, pose ``c2w``); updates the
+        map in place and returns the iterations' losses."""
+        cur_feats, (srt, off) = self._cur_state(cur)
+        mask = torch.zeros(self.n_class, dtype=torch.bool, device=self.device)
+        mask[classes] = True
+        frame = {"color": cur["color"], "depth": cur["depth"], "label": cur["label"],
+                 "c2w": c2w, "bound": self.bound, "sorted_idx": srt, "offsets": off,
+                 "feats": cur_feats[None]}
+        losses = self.decoder_init_fn(self.params, frame, mask, self.gen)
+        self.decoder_inits.append({"frame": cur["index"], "classes": list(classes)})
+        return losses
 
     def _keystep(self, idx: int, cur) -> None:
         """One keystep: two outer mapping calls (overlap, then global
@@ -464,14 +489,15 @@ class DNSSLAM:
         self.mesh_times.append(time.perf_counter() - t0)
 
     # ------------------------------------------------------------------
-    def _track_once(self, feats, cur, c2w0: np.ndarray) -> np.ndarray:
+    def _track_once(self, feats, cur, c2w0: np.ndarray):
+        """([quad, T, loss, p, d] float64, iterations run)."""
         t7 = tensor_from_camera_np(c2w0).astype(np.float32)
         t7 = torch.as_tensor(t7, device=self.device)
-        packed = self.tracker.track(
+        packed, n_run = self.tracker.track(
             self.params, feats, self._refer_w2c, cur["color"], cur["depth"],
             cur["label"], t7[:4], t7[4:], self.bound, self.gen,
         )
-        return packed.cpu().numpy().astype(np.float64)  # [quad, T, loss, p, d]
+        return packed.cpu().numpy().astype(np.float64), n_run
 
     def track_frame(self, idx: int, cur) -> np.ndarray:
         t0 = time.perf_counter()
@@ -485,7 +511,7 @@ class DNSSLAM:
             )
         feats = self._encode(torch.stack([self._refer_color, cur["color"]]))
         est0 = pose_init_const_velocity(self.estimate_c2w, idx, self.const_speed)
-        pk = self._track_once(feats, cur, est0)
+        pk, n_run = self._track_once(feats, cur, est0)
         best_loss = float(pk[7])
         hist = self._track_loss_hist
         retried = False
@@ -493,7 +519,8 @@ class DNSSLAM:
                 and best_loss > self.track_retry_factor * float(np.median(hist[-20:]))):
             # loss outlier: re-track from the raw previous pose with fresh
             # rays and keep the lower-loss candidate
-            pk_r = self._track_once(feats, cur, self.estimate_c2w[idx - 1])
+            pk_r, n_retry = self._track_once(feats, cur, self.estimate_c2w[idx - 1])
+            n_run += n_retry
             retried = True
             if float(pk_r[7]) < best_loss:
                 pk, best_loss = pk_r, float(pk_r[7])
@@ -502,13 +529,15 @@ class DNSSLAM:
         self.estimate_c2w[idx] = c2w
         dt = time.perf_counter() - t0
         self.track_times.append(dt)
+        self.track_iters.append(n_run)
         p_loss, d_loss = float(pk[8]), float(pk[9])
         if self.verbose:
             err = float(np.abs(tensor_from_camera_np(cur["host"]["c2w"]) - pk[:7]).mean())
             print(f"Frame {idx} FRONT: rgb {p_loss:.4f} d {d_loss:.4f} "
                   f"ATE~{err:.6f} {dt:.2f}s", flush=True)
         self._log_metric(event="track", frame=idx, p_loss=p_loss, d_loss=d_loss,
-                         best_loss=best_loss, retried=retried, seconds=dt)
+                         best_loss=best_loss, retried=retried, n_iters_run=n_run,
+                         seconds=dt)
         return c2w
 
     def _log_metric(self, **kw) -> None:
@@ -528,9 +557,30 @@ class DNSSLAM:
             kf.add(cur["host"], self.estimate_c2w[idx])
 
     # ------------------------------------------------------------------
-    def run(self, end_frame: Optional[int] = None):
-        """The strict-sync schedule; returns (estimated, GT) poses (n, 4, 4)."""
-        n = self.n_img if end_frame is None else min(end_frame, self.n_img)
+    def resume(self, path: str) -> int:
+        """Restore a checkpoint written by either package (params, encoder
+        params, poses, decoder counts, keyframes; a key missing from the file
+        keeps its fresh value); returns the next frame index. The generator
+        is seeded anew, not restored (as in dnsjax), so a resumed run is not
+        the uninterrupted one."""
+        ckpt = load_checkpoint(path)
+        self.params = restore_params(self.params, ckpt)
+        self.enc_params = restore_params(self.enc_params, ckpt, "enc")
+        self.estimate_c2w[:] = ckpt["estimate_c2w"][: self.n_img]
+        self.gt_c2w[:] = ckpt["gt_c2w"][: self.n_img]
+        meta = ckpt["meta"]
+        self.exist_decoders = {int(k): v for k, v in meta["exist_decoders"].items()}
+        if "kf/colors" in ckpt:
+            for k in range(ckpt["kf/colors"].shape[0]):
+                self.keyframes.add({"color": ckpt["kf/colors"][k], "depth": ckpt["kf/depths"][k],
+                                    "label": ckpt["kf/labels"][k], "c2w": ckpt["kf/gt_c2w"][k],
+                                    "index": meta["kf_frame_ids"][k]}, ckpt["kf/est_c2w"][k])
+        self._kf_feats = {}
+        self.first_frame_optimized = True
+        return int(meta["idx"]) + 1
+
+    def _bootstrap(self, n: int) -> None:
+        """Frames 0 and 1 take their GT poses; frame 0 maps first."""
         f0 = self._frame_to_device(self.dataset[0])
         self.gt_c2w[0] = f0["host"]["c2w"]
         self.estimate_c2w[0] = self.gt_c2w[0]
@@ -551,7 +601,19 @@ class DNSSLAM:
             print(f"BACK: init mapping done in {self.map_times[-1]:.1f}s", flush=True)
         self._log_metric(event="init_map", seconds=self.map_times[-1])
 
-        for idx in range(1, n):
+    def run(self, end_frame: Optional[int] = None, start_frame: int = 0):
+        """The strict-sync schedule from frame ``start_frame`` (0 bootstraps
+        the map; a resumed run seeds the tracker's reference from frame
+        start - 1); returns (estimated, GT) poses (n, 4, 4)."""
+        n = self.n_img if end_frame is None else min(end_frame, self.n_img)
+        if start_frame == 0:
+            self._bootstrap(n)
+            start = 1
+        else:
+            start = start_frame
+            self._pre_color = self._frame_to_device(self.dataset[start - 1])["color"]
+
+        for idx in range(start, n):
             cur = self._frame_to_device(self.dataset[idx])
             self.gt_c2w[idx] = cur["host"]["c2w"]
             if idx <= 1 or self.use_gt_camera:

@@ -10,6 +10,13 @@ are stop-gradients.
 
 Each iteration's random numbers come from one function, ``draw``, and the
 loss takes them as input, so a test can feed dnsjax's draws to the port.
+
+``make_decoder_init_fn`` is the warm-up of new class decoders (dnsjax's
+``make_decoder_init_fn``): a fresh Adam over the map's parameters (no
+poses), ``n_iters`` iterations of class-restricted rays of the current
+frame, features from that one view. Its loss is not the keystep's: depth
+L1 without the variance weighting, no distillation term, and the TV term
+on every iteration, unscaled (``smooth_every`` does not apply).
 """
 
 from __future__ import annotations
@@ -30,11 +37,15 @@ from dnsjax_torch.losses.losses import (
     tv_smoothness_loss,
 )
 from dnsjax_torch.models.decoder import DecoderSpec, coarse_apply, param_leaves, pos_encode
-from dnsjax_torch.models.features import match_features_batched
+from dnsjax_torch.models.features import match_features, match_features_batched
 from dnsjax_torch.ops.oneblob import linspace01
 from dnsjax_torch.render.pipeline import render_fine
 from dnsjax_torch.render.sampling import draw_z_noise, sample_along_rays
-from dnsjax_torch.slam.sampling import sample_class_balanced_pixels, sample_uniform_pixels
+from dnsjax_torch.slam.sampling import (
+    sample_class_balanced_pixels,
+    sample_restricted_class_pixels,
+    sample_uniform_pixels,
+)
 
 
 @dataclass(frozen=True)
@@ -63,7 +74,7 @@ class MapConfig:
     smooth_every: int = 1
     opacity_sigma: float = 0.05
     truncation: float = 0.2
-    feature_taps: int = 1
+    feature_taps: int = 4
 
     @property
     def cam(self):
@@ -218,6 +229,98 @@ def make_optimizer(params, quads: torch.Tensor, Ts: torch.Tensor, cfg: MapConfig
          {"params": [quads, Ts], "lr": cfg.ba_cam_lr}],
         betas=(0.9, 0.999), eps=1e-8,
     )
+
+
+class DecoderInitLoss:
+    """The warm-up loss on ``n_pixels`` class-restricted rays of one frame.
+
+    Frame dict (tensors on the compute device): color (H,W,3), depth (H,W),
+    label (H,W), c2w (4,4), bound (3,2), sorted_idx (H*W,), offsets (C+1,),
+    feats (1,Hf,Wf,64) the frame's encoder features.
+    """
+
+    def __init__(self, spec: DecoderSpec, cfg: MapConfig, n_pixels: int = 300,
+                 compute_dtype=torch.bfloat16):
+        self.spec, self.cfg, self.n, self.dtype = spec, cfg, n_pixels, compute_dtype
+        self.S = cfg.n_samples + cfg.n_surface
+
+    def draw(self, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
+        """One iteration's random numbers: the restricted sampler's uniforms,
+        the z-sampling uniforms and the TV sub-grid placement."""
+        t_surf, t_zero = draw_z_noise(gen, (), self.cfg.n_surface, device)
+        return {"u": torch.rand(self.n, generator=gen, device=device),
+                "t_surf": t_surf, "t_zero": t_zero,
+                "sm_offset": torch.rand(3, generator=gen, device=device),
+                "sm_jitter": torch.rand(3, generator=gen, device=device)}
+
+    def __call__(self, params, frame, class_mask, draws) -> torch.Tensor:
+        cfg, spec, bound = self.cfg, self.spec, frame["bound"]
+        pix = sample_restricted_class_pixels(draws["u"], frame["sorted_idx"], frame["offsets"],
+                                             class_mask)
+        gt_c = frame["color"].reshape(-1, 3)[pix]
+        gt_d = frame["depth"].reshape(-1)[pix]
+        gt_l = frame["label"].reshape(-1)[pix]
+        i = (pix % cfg.W).to(torch.float32)
+        j = (pix // cfg.W).to(torch.float32)
+        rays_o, rays_d = rays_from_uv(i, j, frame["c2w"], cfg.fx, cfg.fy, cfg.cx, cfg.cy)
+        far = ray_box_far(rays_o, rays_d, bound)
+        inside = far >= gt_d
+        z = sample_along_rays(gt_d, cfg.n_samples, cfg.n_surface, far + 0.01,
+                              draws["t_surf"], draws["t_zero"])
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        code = match_features(
+            params, pts.reshape(-1, 3), invert_se3(frame["c2w"])[None], frame["feats"],
+            cfg.cam, bound, spec, self.dtype, taps=cfg.feature_taps,
+        ).reshape(self.n, self.S, -1)
+        dd = gt_d[:, None]
+        trunc = (z >= dd * 0.95) & (z <= dd * 1.05) & (dd > 0)
+        out = render_fine(params, spec, pts, z, gt_l, code * trunc[..., None], bound, self.dtype)
+        mask = (gt_d > 0.01) & inside
+        p_loss = photometric_loss(gt_c, out.color, mask)
+        d_loss = depth_l1_loss(gt_d, out.depth, mask)
+        l_loss = semantic_ce_loss(gt_l, out.logits, mask)
+        p01 = smoothness_grid_pts01(bound, draws["sm_offset"], draws["sm_jitter"], cfg)
+        sm_loss = tv_smoothness_loss(smoothness_grid_occ(params, spec, p01, cfg, self.dtype))
+        fs_loss, op_loss = freespace_opacity_loss(
+            z, gt_d, out.fine_latents[..., 0], mask,
+            truncation=cfg.truncation, sigma=cfg.opacity_sigma,
+        )
+        return (
+            cfg.lambda_p * p_loss + cfg.lambda_d * d_loss + cfg.lambda_l * l_loss
+            + cfg.lambda_fs * fs_loss + cfg.lambda_op * op_loss + cfg.lambda_sm * sm_loss
+        )
+
+
+def make_decoder_init_fn(spec: DecoderSpec, cfg: MapConfig, n_iters: int = 100,
+                         n_pixels: int = 300, compute_dtype=torch.bfloat16):
+    """The decoder warm-up: ``fn(params, frame, class_mask, gen, draws=None)
+    -> losses (n_iters,)`` on device, updating ``params`` in place with a
+    fresh Adam at ``cfg.lr`` (optax.adam's defaults). ``draws``: the
+    iterations' draws (default: from ``gen``)."""
+    loss_fn = DecoderInitLoss(spec, cfg, n_pixels, compute_dtype)
+
+    def fn(params, frame, class_mask, gen, draws=None):
+        leaves = param_leaves(params)
+        opt = torch.optim.Adam(leaves, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        losses: List[torch.Tensor] = []
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            for it in range(n_iters):
+                d = draws[it] if draws is not None else loss_fn.draw(gen, frame["color"].device)
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(params, frame, class_mask, d)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+                p.grad = None
+        return torch.stack(losses)
+
+    fn.loss_fn = loss_fn
+    return fn
 
 
 def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator,

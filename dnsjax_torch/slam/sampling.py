@@ -52,3 +52,23 @@ def sample_class_balanced_pixels(u: torch.Tensor, sorted_idx: torch.Tensor,
     cnt = torch.clamp(torch.gather(counts, -1, cls), min=1)
     pick = lo + (u * cnt.to(u.dtype)).to(torch.int64)
     return torch.gather(sorted_idx.to(torch.int64), -1, pick)
+
+
+def sample_restricted_class_pixels(u: torch.Tensor, sorted_idx: torch.Tensor,
+                                   offsets: torch.Tensor,
+                                   class_mask: torch.Tensor) -> torch.Tensor:
+    """Class-balanced pixel ids from uniforms ``u`` (n,), restricted to the
+    classes of ``class_mask`` (C,) bool that the frame shows (the decoder
+    warm-up's rays); when it matches none, all present classes. sorted_idx
+    (H*W,), offsets (C+1,)."""
+    offsets = offsets.to(torch.int64)
+    counts = offsets[1:] - offsets[:-1]
+    present = (counts > 0) & class_mask.to(torch.bool)
+    present = torch.where(present.any(), present, counts > 0).to(torch.int64)
+    n_present = torch.clamp(present.sum(), min=1)
+    cum = torch.cumsum(present, 0)
+    ranks = torch.arange(u.shape[0], device=u.device) % n_present
+    cls = torch.searchsorted(cum, ranks + 1, side="left")
+    cnt = torch.clamp(counts[cls], min=1)
+    pick = offsets[cls] + (u * cnt.to(u.dtype)).to(torch.int64)
+    return sorted_idx.to(torch.int64)[pick]

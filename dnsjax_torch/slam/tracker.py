@@ -1,16 +1,30 @@
-"""Camera tracking: the Levenberg-Marquardt pose solve, PyTorch port of
-dnsjax/slam/tracker.py (``track_body_lm``).
+"""Camera tracking, PyTorch port of dnsjax/slam/tracker.py: the reference's
+Adam schedule (``track_body``, ``tracking.method: adam``) and the
+Levenberg-Marquardt solve (``track_body_lm``, ``method: lm``).
 
-Each LM iteration draws a fresh ray batch, builds the 7 x m Jacobian of the
+Adam: each of ``n_iters`` iterations draws a fresh ray batch, renders the
+coarse field at the current pose and takes the pose gradient by reverse
+mode through the hash encode (its position gradient only: the map's
+parameters do not require grad while tracking, so no table gradient runs),
+then one optax-style Adam step (b1 0.9, b2 0.999, eps 1e-8; ``seperate_LR``
+gives T 0.2x the lr; ``lr_decay < 1`` gives lr * decay^(step / n_iters)).
+
+LM: each iteration draws a fresh ray batch, builds the 7 x m Jacobian of the
 weighted residual vector by forward mode (``torch.func.jvp`` under
 ``torch.func.vmap`` over the 7 pose tangents, through the hash encode's
 ``jvp``), forms the damped normal equations, solves, and accepts the trial
 pose if the full scalar loss (which keeps the semantic CE term) drops on the
-same batch. The min-loss candidate is kept as in the reference. The whole
-solve stays on the device: accept/reject and the candidate use
-``torch.where``, so the host reads one packed vector per frame.
+same batch.
 
-The Adam schedule (``tracking.method: adam``) is not ported yet.
+Both keep the min-loss candidate: the pose *at which* a loss was evaluated,
+before that iteration's update, as in the reference; accept/reject and the
+candidate use ``torch.where`` on the device. Early exit (``patience`` for
+Adam, ``lm_patience`` for LM: stop once the candidate has not improved for
+that many iterations) is a ``lax.while_loop`` in dnsjax; here the host reads
+the iteration's "improved" flag, one sync an iteration, and skips the
+iterations it no longer needs with their launches. A tracked frame is bound
+by launches, not by the device, so the sync costs little. Without early exit
+the host reads one packed vector a frame.
 """
 
 from __future__ import annotations
@@ -38,12 +52,19 @@ class TrackConfig:
     fy: float
     cx: float
     cy: float
+    n_iters: int = 50
     n_pixels: int = 500
     n_samples: int = 32
     n_surface: int = 15
     ignore_edge: int = 20
-    feature_taps: int = 1
+    cam_lr: float = 1e-3
+    separate_lr: bool = False
+    lr_decay: float = 1.0      # 1.0: constant lr
+    feature_taps: int = 4
+    patience: int = 0          # Adam early exit; 0 runs all n_iters
+    method: str = "adam"       # "adam" | "lm"
     lm_iters: int = 10
+    lm_patience: int = 0       # LM early exit; 0 runs all lm_iters
     lm_lambda0: float = 1e-3   # initial damping (scaled by diag(JtJ))
     lm_up: float = 5.0         # damping multiplier on a rejected step
     lm_down: float = 0.5       # damping multiplier on an accepted step
@@ -57,9 +78,11 @@ class TrackConfig:
 
 
 class Tracker:
-    """Per-frame LM tracking against a frozen map."""
+    """Per-frame pose tracking (Adam or LM) against a frozen map."""
 
     def __init__(self, spec, cfg: TrackConfig, compute_dtype=torch.bfloat16):
+        if cfg.method not in ("adam", "lm"):
+            raise ValueError(f"tracking.method={cfg.method!r}: expected adam|lm")
         self.spec, self.cfg, self.dtype = spec, cfg, compute_dtype
 
     def draw(self, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
@@ -156,40 +179,116 @@ class Tracker:
         with torch.no_grad():
             return self.resid(quad, T, frame, draws)[1]
 
+    def adam_lr(self, step: int):
+        """(quad lr, T lr) of Adam step ``step`` (0-based)."""
+        cfg = self.cfg
+        lr = cfg.cam_lr
+        if cfg.lr_decay < 1.0:
+            lr = lr * cfg.lr_decay ** (step / cfg.n_iters)
+        return lr, (lr * 0.2 if cfg.separate_lr else lr)
+
+    def adam_grad(self, quad, T, frame, draws):
+        """(loss, p, d) at (quad, T) and the pose gradient (g_quad, g_T)."""
+        q = quad.detach().requires_grad_(True)
+        t = T.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss, p, d = self.losses_from(*self.forward(q, t, frame, draws))
+            gq, gt = torch.autograd.grad(loss, (q, t))
+        return (loss.detach(), p.detach(), d.detach()), (gq, gt)
+
+    @staticmethod
+    def _keep(best, loss, quad, T, p, d):
+        """The min-loss candidate updated with (loss, quad, T, p, d)."""
+        better = loss < best[0]
+        return tuple(torch.where(better, n, o) for n, o in zip((loss, quad, T, p, d), best)), better
+
+    @staticmethod
+    def _stalled(better, since: int, patience: int):
+        """The early-exit counter after an iteration: (stop, since)."""
+        if patience <= 0:
+            return False, since
+        since = 0 if bool(better) else since + 1
+        return since >= patience, since
+
+    def adam_step(self, pose, mom, vel, grads, step: int):
+        """One Adam update of pose = [quad, T] at step ``step`` (0-based),
+        optax.adam's arithmetic in its order (b1 0.9, b2 0.999, eps 1e-8);
+        returns the new (pose, mom, vel) lists."""
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        lrs, t = self.adam_lr(step), step + 1
+        mom = [(1 - b1) * g + b1 * m for g, m in zip(grads, mom)]
+        vel = [(1 - b2) * g * g + b2 * v for g, v in zip(grads, vel)]
+        pose = [x + -lr * ((m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps))
+                for x, lr, m, v in zip(pose, lrs, mom, vel)]
+        return pose, mom, vel
+
+    def track_adam(self, frame, quad0, T0, draw):
+        """Adam pose solve (dnsjax ``track_body``); (best, n_iters_run)."""
+        cfg = self.cfg
+        inf = torch.tensor(float("inf"), device=quad0.device)
+        best = (inf, quad0, T0, inf, inf)
+        pose = [quad0, T0]
+        mom = [torch.zeros_like(x) for x in pose]
+        vel = [torch.zeros_like(x) for x in pose]
+        since, it = 0, 0
+        while it < cfg.n_iters:
+            (loss, p, d), grads = self.adam_grad(pose[0], pose[1], frame, draw(it))
+            best, better = self._keep(best, loss, pose[0], pose[1], p, d)
+            pose, mom, vel = self.adam_step(pose, mom, vel, grads, it)
+            it += 1
+            stop, since = self._stalled(better, since, cfg.patience)
+            if stop:
+                break
+        return best, it
+
+    def track_lm(self, frame, quad0, T0, draw):
+        """LM pose solve (dnsjax ``track_body_lm``); (best, n_iters_run)."""
+        cfg = self.cfg
+        dev = quad0.device
+        inf = torch.tensor(float("inf"), device=dev)
+        quad, T = quad0, T0
+        lam = torch.tensor(cfg.lm_lambda0, dtype=torch.float32, device=dev)
+        best = (inf, quad0, T0, inf, inf)  # (loss, quad, T, p, d)
+        since, it = 0, 0
+        while it < cfg.lm_iters:
+            draws = draw(it)
+            r, J, (loss, p, d) = self.linearize(quad, T, frame, draws)
+            best, better = self._keep(best, loss, quad, T, p, d)
+            q_new, T_new = self.lm_step(quad, T, lam, J, r)
+            new_loss = self.eval_loss(q_new, T_new, frame, draws)[0]
+            accept = new_loss < loss
+            quad = torch.where(accept, q_new, quad)
+            T = torch.where(accept, T_new, T)
+            lam = torch.clamp(torch.where(accept, lam * cfg.lm_down, lam * cfg.lm_up), 1e-7, 1e7)
+            it += 1
+            stop, since = self._stalled(better, since, cfg.lm_patience)
+            if stop:
+                break
+        # the final accepted pose was never evaluated inside the loop
+        loss_f, p_f, d_f = self.eval_loss(quad, T, frame, draw(-1))
+        best, _ = self._keep(best, loss_f, quad, T, p_f, d_f)
+        return best, it
+
     def track(self, params, enc_feats, refer_w2c, color, depth, label, quad0, T0,
-              bound, gen: torch.Generator, draws=None) -> torch.Tensor:
-        """LM pose solve. Returns the packed (10,) float32 vector
-        [best quad (4), best T (3), best loss, p_loss, d_loss] on device.
-        ``draws``: lm_iters + 1 iteration draws (default: from ``gen``)."""
+              bound, gen: torch.Generator, draws=None):
+        """Pose solve by ``cfg.method``. Returns (the packed (10,) float32
+        vector [best quad (4), best T (3), best loss, p_loss, d_loss] on
+        device, n_iters_run). ``draws``: the iterations' draws (n_iters for
+        Adam, lm_iters + 1 for LM, the last for the final LM evaluation);
+        by default each is drawn from ``gen`` when it is needed, so the
+        iterations an early exit skips draw nothing."""
         cfg = self.cfg
         dev = quad0.device
         frame = {"params": params, "enc_feats": enc_feats, "refer_w2c": refer_w2c,
                  "colorf": color.reshape(-1, 3), "depthf": depth.reshape(-1),
                  "labelf": label.reshape(-1), "bound": bound}
         if draws is None:
-            draws = [self.draw(gen, dev) for _ in range(cfg.lm_iters + 1)]
-        inf = torch.tensor(float("inf"), device=dev)
-        quad, T = quad0, T0
-        lam = torch.tensor(cfg.lm_lambda0, dtype=torch.float32, device=dev)
-        best = (inf, quad0, T0, inf, inf)  # (loss, quad, T, p, d)
-
-        def keep(best, loss, quad, T, p, d):
-            better = loss < best[0]
-            return tuple(torch.where(better, n, o) for n, o in zip((loss, quad, T, p, d), best))
-
-        for it in range(cfg.lm_iters):
-            r, J, (loss, p, d) = self.linearize(quad, T, frame, draws[it])
-            best = keep(best, loss, quad, T, p, d)
-            q_new, T_new = self.lm_step(quad, T, lam, J, r)
-            new_loss = self.eval_loss(q_new, T_new, frame, draws[it])[0]
-            accept = new_loss < loss
-            quad = torch.where(accept, q_new, quad)
-            T = torch.where(accept, T_new, T)
-            lam = torch.clamp(torch.where(accept, lam * cfg.lm_down, lam * cfg.lm_up), 1e-7, 1e7)
-        # the final accepted pose was never evaluated inside the loop
-        loss_f, p_f, d_f = self.eval_loss(quad, T, frame, draws[-1])
-        loss, bq, bT, p, d = keep(best, loss_f, quad, T, p_f, d_f)
-        return torch.cat([bq, bT, torch.stack([loss, p, d])]).to(torch.float32)
+            draw = lambda _: self.draw(gen, dev)
+        else:
+            draw = lambda i: draws[i]
+        solve = self.track_adam if cfg.method == "adam" else self.track_lm
+        (loss, bq, bT, p, d), n_run = solve(frame, quad0, T0, draw)
+        return torch.cat([bq, bT, torch.stack([loss, p, d])]).to(torch.float32), n_run
 
 
 def pose_init_const_velocity(est_c2w_list: np.ndarray, idx: int,

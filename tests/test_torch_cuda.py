@@ -5,9 +5,9 @@ Imports no jax, so it runs on a machine without it:
 Without a card every test skips. Tolerances: forward output and weights
 atol 1e-6 (same bf16 rows and float32 steps), per-corner rows, ids and aux
 exact; table gradient (the fused kernel in every value mode, one corner
-and all corners, and its values-as-given mode) 1e-5 of each row's sum of
-contribution magnitudes plus 1e-7, the bound of the float32 atomics'
-summation order; the sorted scatter-add the same bound against its twin,
+and all corners, its level-draw mode and its values-as-given mode) 1e-5
+of each row's sum of contribution magnitudes plus 1e-7, the bound of the
+float32 atomics' summation order; the sorted scatter-add the same bound against its twin,
 and bit-for-bit equality between two launches (it uses no atomics).
 """
 
@@ -92,6 +92,34 @@ def test_table_gradient_kernel_matches_plain(dev, scatter_mode, grad_corners, in
     ref = scatter.table_grad_plain(spec, idx, w, gl)
     bound = _table_grad_bound(spec, idx, w, gl)
     assert got.shape == ref.shape and got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= bound).all())
+    before = scatter.LAUNCHES
+    (hashgrid.hash_encode(table, pts, spec) * cot).sum().backward()
+    assert scatter.LAUNCHES == before + 1
+    assert bool(((table.grad - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("F", [2, 8, 16])
+@pytest.mark.parametrize("interp", ["tet", "trilinear"])
+@pytest.mark.parametrize("grad_corners", [1, 8])
+@pytest.mark.parametrize("scatter_mode", ["pallas_sr", "xla"])
+def test_level_draw_kernel_matches_plain(dev, scatter_mode, grad_corners, interp, F):
+    """``grad_levels: 1``: the kernel's level-draw mode (one drawn level a
+    point, times L, float32 under every ``scatter`` mode) against
+    table_grad_plain, one launch; through hash_encode's backward too."""
+    spec = _spec(interp, F, grad_corners=grad_corners, scatter=scatter_mode, grad_levels=1)
+    N = 4999
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = (torch.rand((3, 4096, F), generator=g, device=dev) - 0.5).requires_grad_(True)
+    pts = torch.rand((N, 3), generator=g, device=dev) * 1.2 - 0.1
+    cot = torch.randn((N, 3 * F), generator=g, device=dev)
+    _, _, idx, w, _ = gather.encode_forward(pts, table.detach(), spec, True)
+    gl = cot.reshape(N, 3, F)
+    before = scatter.LAUNCHES
+    got = scatter.table_grad(spec, idx, w, gl)
+    assert scatter.LAUNCHES == before + 1
+    ref = scatter.table_grad_plain(spec, idx, w, gl)
+    bound = _table_grad_bound(spec, idx, w, gl)
     assert bool(((got - ref).abs() <= bound).all())
     before = scatter.LAUNCHES
     (hashgrid.hash_encode(table, pts, spec) * cot).sum().backward()

@@ -1,8 +1,10 @@
 """The port's driver and CLI: window layout against dnsjax's driver, the
-unsupported-config guard, and the whole slice on the CPU
-(``python -m dnsjax_torch.cli.run configs/synthetic/synthetic.yaml
---device cpu``, cut to 6 frames and a few iterations) ending in a finite
-ATE and a model.npz that dnsjax loads."""
+unsupported-config guard and the config values ported since it was added,
+the whole slice on the CPU (``python -m dnsjax_torch.cli.run
+configs/synthetic/synthetic.yaml --device cpu``, cut to 6 frames and a few
+iterations) ending in a finite ATE and a model.npz that dnsjax loads,
+resuming from either package's checkpoints, and the decoder warm-up's
+trigger past frame 50."""
 
 import os
 
@@ -39,15 +41,28 @@ def _cfg(*overrides):
     "mapping.mesh_every=10,meshing.show_forecast=true",
     "mapping.mesh_every=10,meshing.get_mask_use_all_frames=true",
     "mapping.mesh_every=10,meshing.depth_test=true,meshing.use_est_depth=true",
-    "tpu.feature_taps=4",
-    "tracking.method=adam",
-    "tracking.lm_patience=3",
-    "model.grid.grad_levels=1",
-    "tpu.encoder_init=random",
 ])
 def test_unsupported_config_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdrv.check_supported(_cfg(*override.split(",")))
+
+
+@pytest.mark.parametrize("override,check", [
+    ("tpu.feature_taps=4", lambda s: s.track_cfg.feature_taps == s.map_cfg.feature_taps == 4),
+    ("tracking.method=adam", lambda s: s.track_cfg.method == "adam"
+     and s.track_cfg.n_iters == 40 and s.track_cfg.cam_lr == 1e-3),
+    ("tracking.lm_patience=3", lambda s: s.track_cfg.lm_patience == 3),
+    ("model.grid.grad_levels=1", lambda s: s.spec.grid.grad_levels == 1),
+    ("tpu.encoder_init=random", lambda s: s.enc_params["w"].shape == (7, 7, 3, 64)
+     and abs(float(s.enc_params["w"].std()) - (2 / 147) ** 0.5) < 0.01),
+])
+def test_ported_config_is_supported(override, check, tmp_path):
+    """Values the guard refused before they were ported pass it and reach the
+    driver's tracker, mapper, grid spec and encoder."""
+    cfg = _cfg(override)
+    cfg["verbose"] = False
+    tdrv.check_supported(cfg)
+    assert check(tdrv.DNSSLAM(cfg, output_dir=str(tmp_path), device="cpu"))
 
 
 def test_shipped_output_options_are_supported():
@@ -58,9 +73,20 @@ def test_shipped_output_options_are_supported():
     tdrv.check_supported(cfg)
 
 
-def test_resume_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_run.main([CONFIG, "--device", "cpu", "--resume", "model.npz"])
+def test_resume_latest_picks_final_then_highest(tmp_path):
+    """--resume-latest: model.npz if present, else the highest model_N.npz by
+    the frame in its name (not by mtime), as dnsjax's CLI picks it."""
+    for name in ("model_12.npz", "model_3.npz", "model_20.npz", "model.npz"):
+        (tmp_path / name).write_bytes(b"")
+    assert t_run.latest_checkpoint(str(tmp_path)) == str(tmp_path / "model.npz")
+    (tmp_path / "model.npz").unlink()
+    os.utime(tmp_path / "model_3.npz")  # the newest file is not the latest frame
+    assert t_run.latest_checkpoint(str(tmp_path)) == str(tmp_path / "model_20.npz")
+    for p in tmp_path.iterdir():
+        p.unlink()
+    assert t_run.latest_checkpoint(str(tmp_path)) is None
+    with pytest.raises(SystemExit):
+        t_run.main([CONFIG, "--device", "cpu", "--output", str(tmp_path), "--resume-latest"])
 
 
 def test_cuda_device_without_card_raises(tmp_path):
@@ -142,3 +168,127 @@ def slam_spec_jax(slam):
     from dnsjax.models.decoder import DecoderSpec
 
     return DecoderSpec.from_config(slam.cfg, slam.bound_np, slam.n_class)
+
+
+def _store_arrays(kf):
+    return {n: getattr(kf, n)[:kf.count].numpy() for n in ("colors", "depths", "labels",
+                                                           "gt_c2w", "est_c2w")}
+
+
+def test_resume_own_checkpoint_and_run_on(tmp_path):
+    """A run that writes model_3.npz and model_6.npz; a fresh driver resumed
+    from model_6.npz holds every array of the file (params, encoder, poses,
+    keyframes) and the decoder counts, and ``run(start_frame=7)`` tracks on
+    from frame 7 and writes model.npz; ``--resume-latest`` then resumes from
+    that model.npz."""
+    out = str(tmp_path / "run")
+    argv = [CONFIG, "--device", "cpu", "--end-frame", "7", "--output", out,
+            "--set", "mapping.checkpoint_every=3"]
+    for s in SHORT:
+        argv += ["--set", s]
+    t_run.main(argv)
+    assert {"model_3.npz", "model_6.npz", "model.npz"} <= set(os.listdir(out))
+    ck = tck.load_checkpoint(os.path.join(out, "model_6.npz"))
+    cfg = _cfg()
+    cfg["verbose"] = False
+    slam = tdrv.DNSSLAM(cfg, output_dir=str(tmp_path / "resumed"), device="cpu")
+    assert slam.resume(os.path.join(out, "model_6.npz")) == 7
+    for prefix, tree in (("params", slam.params), ("enc", slam.enc_params)):
+        got = tck.params_to_numpy(tree, prefix)
+        assert set(got) == {k for k in ck if k.startswith(prefix + "/")}
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, ck[k], err_msg=k)
+    np.testing.assert_array_equal(slam.estimate_c2w, ck["estimate_c2w"])
+    np.testing.assert_array_equal(slam.gt_c2w, ck["gt_c2w"])
+    assert slam.exist_decoders == {int(k): v for k, v in ck["meta"]["exist_decoders"].items()}
+    assert slam.keyframes.frame_ids == ck["meta"]["kf_frame_ids"]
+    for name, arr in _store_arrays(slam.keyframes).items():
+        np.testing.assert_array_equal(arr, ck[f"kf/{name}"], err_msg=name)
+    est, _ = slam.run(end_frame=9, start_frame=7)
+    assert np.isfinite(est).all() and len(slam.track_times) == 2
+    final = tck.load_checkpoint(str(tmp_path / "resumed" / "model.npz"))
+    assert final["meta"]["idx"] == 8
+    np.testing.assert_array_equal(final["estimate_c2w"][:7], ck["estimate_c2w"][:7])
+    argv = [CONFIG, "--device", "cpu", "--output", str(tmp_path / "resumed"),
+            "--resume-latest", "--end-frame", "10"]
+    for s in SHORT:
+        argv += ["--set", s]
+    again = t_run.main(argv)  # from model.npz (frame 8): tracks frame 9 alone
+    assert len(again.track_times) == 1
+    n_kf = len(final["meta"]["kf_frame_ids"])
+    assert again.keyframes.frame_ids[:n_kf] == final["meta"]["kf_frame_ids"]
+
+
+def test_resume_checkpoint_written_by_dnsjax(tmp_path):
+    """A checkpoint that dnsjax's save_checkpoint wrote (its pytrees, its
+    keyframe store) resumes in the port; a key missing from the file keeps
+    the port's fresh value."""
+    from dnsjax.models.encoder import init_encoder_params
+    from dnsjax.slam.keyframes import KeyframeStore as JStore
+
+    cfg = _cfg()
+    cfg["verbose"] = False
+    slam = tdrv.DNSSLAM(cfg, output_dir=str(tmp_path / "t"), device="cpu")
+    jp = init_decoder_params(jax.random.PRNGKey(3), slam_spec_jax(slam))
+    jp["table"] = jp["table"] + 1.0
+    del jp["color"]  # not in the file: the port keeps its own
+    enc = init_encoder_params(5, mode="random")
+    store = JStore(4, slam.dataset.H, slam.dataset.W, slam.n_class)
+    for i in (0, 3):
+        f = slam.dataset[i]
+        store.add(dict(f, index=i), f["c2w"])
+    rng = np.random.default_rng(0)
+    est = rng.normal(size=(slam.n_img, 4, 4)).astype(np.float32)
+    gt = rng.normal(size=(slam.n_img, 4, 4)).astype(np.float32)
+    path = str(tmp_path / "jax.npz")
+    jck.save_checkpoint(path, jp, enc, est, gt, keyframes=store, idx=4,
+                        exist_decoders={0: 3, 2: 1})
+    fresh_color = tck.params_to_numpy(slam.params["color"], "c")
+    assert slam.resume(path) == 5
+    np.testing.assert_array_equal(slam.params["table"].numpy(), np.asarray(jp["table"]))
+    np.testing.assert_array_equal(slam.params["fine"]["w"][0].numpy(),
+                                  np.asarray(jp["fine"]["w"][0]))
+    for k, v in tck.params_to_numpy(slam.params["color"], "c").items():
+        np.testing.assert_array_equal(v, fresh_color[k])
+    np.testing.assert_array_equal(slam.enc_params["w"].numpy(), np.asarray(enc["w"]))
+    np.testing.assert_array_equal(slam.estimate_c2w, est)
+    np.testing.assert_array_equal(slam.gt_c2w, gt)
+    assert slam.exist_decoders == {0: 3, 2: 1} and slam.keyframes.frame_ids == [0, 3]
+    np.testing.assert_array_equal(slam.keyframes.labels[1].numpy(), slam.dataset[3]["label"])
+
+
+def test_warm_up_fires_past_frame_50(tmp_path):
+    """A mapping call past frame 50 whose window brings a new decoder that
+    the current frame shows warms the new decoders it shows up first, on
+    that frame; at frame 50 or with no new decoder it does not."""
+    cfg = _cfg("synthetic.n_frames=60")
+    cfg["verbose"] = False
+    slam = tdrv.DNSSLAM(cfg, output_dir=str(tmp_path), device="cpu")
+    calls = []
+
+    def fake_init(params, frame, class_mask, gen):
+        calls.append((frame["label"].clone(), class_mask.clone(), frame["c2w"].clone()))
+        return torch.zeros(1)
+
+    slam.decoder_init_fn = fake_init
+    slam.first_frame_optimized = True
+    f0 = slam.dataset[0]
+    slam.keyframes.add(f0, f0["c2w"])
+    for idx, expect in ((50, 0), (55, 1)):
+        cur = slam._frame_to_device(slam.dataset[idx])
+        slam.exist_decoders = {}
+        slam.estimate_c2w[idx] = cur["host"]["c2w"]
+        slam.map_once(idx, cur, 1, "overlap", is_first=False)
+        assert len(calls) == expect, idx
+    label, mask, c2w = calls[-1]
+    shown = set(np.unique(slam.dataset[55]["label"]).tolist())
+    assert set(np.nonzero(mask.numpy())[0].tolist()) == shown  # all new, all shown
+    np.testing.assert_array_equal(c2w.numpy(), slam.dataset[55]["c2w"].astype(np.float32))
+    assert slam.decoder_inits == [{"frame": 55, "classes": sorted(shown)}]
+    # the counts now exceed 4 for no class: a new window still warms; with
+    # every class seen often enough, nothing is new and nothing warms
+    slam.exist_decoders = {c: 20 for c in range(slam.n_class)}
+    cur = slam._frame_to_device(slam.dataset[56])
+    slam.estimate_c2w[56] = cur["host"]["c2w"]
+    slam.map_once(56, cur, 1, "overlap", is_first=False)
+    assert len(calls) == 1

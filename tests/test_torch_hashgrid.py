@@ -119,6 +119,33 @@ def test_table_and_position_gradients_match(scatter, gc, interp):
     assert np.all(p.grad.numpy()[outside] == 0)
 
 
+@pytest.mark.parametrize("interp", ["tet", "trilinear"])
+@pytest.mark.parametrize("gc", [1, 8])
+@pytest.mark.parametrize("scatter", ["pallas_sr", "xla"])
+def test_level_draw_gradients_match(scatter, gc, interp):
+    """``grad_levels: 1`` (one drawn level a point, times L, float32 in every
+    ``scatter`` mode): the table gradient of hash_encode against jax.vjp of
+    dnsjax's (its flat XLA scatter), rtol 1e-5 / atol 1e-7 (summation
+    order); the position gradient is the full one in both packages."""
+    kw = dict(**BASE, n_features=2, interp=interp, gather_bf16=True,
+              grad_corners=gc, scatter=scatter, grad_levels=1)
+    js, ts = _specs(**kw)
+    table, pts = _inputs(12, 2)
+    cot = np.random.default_rng(13).normal(size=(pts.shape[0], 6)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t, p: jh.hash_encode(t, p, js), jnp.asarray(table), jnp.asarray(pts))
+    gt_j, gp_j = vjp(jnp.asarray(cot))
+    t, p, out = _torch_encode(table, pts, ts, grad=True)
+    (out * torch.tensor(cot)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(gt_j), rtol=1e-5, atol=1e-7)
+    gp_j = np.asarray(gp_j)
+    np.testing.assert_allclose(p.grad.numpy(), gp_j, rtol=0, atol=1e-5 * np.abs(gp_j).max())
+    # the level draw changes the gradient: it is not the all-level one
+    full = th.HashGridSpec(**dict(kw, grad_levels=0, scatter="xla"))
+    t2, _, out2 = _torch_encode(table, pts, full, grad=True)
+    (out2 * torch.tensor(cot)).sum().backward()
+    assert not torch.allclose(t.grad, t2.grad)
+
+
 def test_table_gradient_skipped_when_table_frozen():
     """Only the position gradient is computed when the table needs none."""
     _, ts = _specs(**BASE, n_features=8, interp="tet", gather_bf16=True,
@@ -201,5 +228,5 @@ def test_spec_geometry_matches():
         np.testing.assert_array_equal(ts.level_resolutions(), js.level_resolutions())
         assert th._rows_used(ts) == jh._rows_used(js)
         assert ts.per_level_scale == js.per_level_scale
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.HashGridSpec(grad_levels=1)
+    # the stochastic-level backward is a spec like any other
+    assert th.HashGridSpec(grad_levels=1).grad_levels == 1

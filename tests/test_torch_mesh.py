@@ -112,7 +112,7 @@ def _cfg(**tpu):
                         "clean_mesh": True, "depth_test": tpu.pop("depth_test", False)},
             "back_end": {"bound": BOUND.tolist(),
                          "marching_cubes_bound": [[-2.1, 2.1]] * 3},
-            "tpu": dict(feature_taps=1, **tpu)}
+            "tpu": dict(dict(feature_taps=1), **tpu)}
 
 
 def _meshers(scene, dtype, **tpu):
@@ -191,6 +191,32 @@ def test_query_chunk_matches(scene, dtype, fused):
                 for x, y in zip(a, b):
                     assert torch.equal(x, y)
     assert (np.asarray(first[0][3]) > 0).any() and (np.asarray(first[0][1]) >= 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_query_chunk_matches_four_taps(scene, dtype):
+    """``tpu.feature_taps: 4``: bilinear feature taps over separate
+    full-resolution depth and label gathers (fused rows hold one tap, so
+    both packages turn them off): occupancy and color to TOL, label and
+    view count exact."""
+    cdt_j, cdt_t = getattr(jnp, dtype), getattr(torch, dtype)
+    pts = np.random.default_rng(16).uniform(-2.5, 2.5, (400, 3)).astype(np.float32)
+    with pytest.warns(UserWarning):
+        m_j, m_t = _meshers(scene, dtype, feature_taps=4, mesh_fused_rows=True)
+    assert not m_t.fuse_rows and not m_j.fuse_rows and m_t.feature_taps == 4
+    j_args, t_args = _chunk_inputs(scene, False, m_j, m_t, cdt_j, cdt_t)
+    ref = m_j._query(scene["jp"], jnp.asarray(pts), *j_args)
+    with torch.no_grad():
+        occ, lab, col, cnt = (g.numpy() for g in m_t.query_chunk(scene["tp"], T(pts), *t_args))
+    np.testing.assert_array_equal(lab, np.asarray(ref[1]))
+    np.testing.assert_array_equal(cnt, np.asarray(ref[3]))
+    assert (cnt > 0).any()
+    _close(occ, ref[0], **TOL[dtype])
+    _close(col, ref[2], **TOL[dtype])
+    m_n = _meshers(scene, dtype, mesh_fused_rows=False)[1]
+    with torch.no_grad():
+        nearest = m_n.query_chunk(scene["tp"], T(pts), *t_args)[2].numpy()
+    assert not np.allclose(col, nearest)  # the taps change the code
 
 
 def _stores(scene):

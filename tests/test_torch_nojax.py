@@ -1,6 +1,7 @@
 """The port imports neither jax nor anything of the dnsjax package: in a
 fresh interpreter, import dnsjax_torch, run one hash-encode forward and
-backward, one mapping iteration, one mesh extraction and one full-frame
+backward, one mapping iteration, one Adam-tracked frame, one decoder
+warm-up step, a checkpoint resume, one mesh extraction and one full-frame
 render on the CPU, import what eval_ate, eval_2d and cull_mesh use (the
 port's own numpy metrics, cull and PLY code), then check sys.modules."""
 
@@ -33,6 +34,28 @@ f0 = slam._frame_to_device(slam.dataset[0])
 slam.keyframes.add(f0["host"], f0["host"]["c2w"])
 aux, _ = slam.map_once(0, f0, 1, "overlap", is_first=True)
 assert torch.isfinite(aux["losses"]).all()
+
+import dataclasses
+import os
+import numpy as np
+from dnsjax_torch.slam.mapper import make_decoder_init_fn
+from dnsjax_torch.slam.tracker import Tracker
+slam.tracker = Tracker(slam.spec, dataclasses.replace(slam.track_cfg, method="adam", n_iters=2),
+                       slam.compute_dtype)
+for i in (0, 1):
+    slam.estimate_c2w[i] = slam.dataset[i]["c2w"]
+slam._pre_color = f0["color"]
+f2 = slam._frame_to_device(slam.dataset[2])
+assert np.isfinite(slam.track_frame(2, f2)).all() and slam.track_iters == [2]
+slam.decoder_init_fn = make_decoder_init_fn(slam.spec, slam.map_cfg, n_iters=1, n_pixels=50,
+                                            compute_dtype=slam.compute_dtype)
+losses = slam.decoder_init(f2, torch.as_tensor(slam.estimate_c2w[2]),
+                           np.unique(slam.dataset[2]["label"]).tolist()[:1])
+assert torch.isfinite(losses).all()
+slam.save_checkpoint("resume.npz", 2)
+again = DNSSLAM(cfg, output_dir=sys.argv[1], device="cpu")
+assert again.resume(os.path.join(sys.argv[1], "resume.npz")) == 3
+assert torch.equal(again.params["table"], slam.params["table"])
 
 from dnsjax_torch.mesh.mesher import Mesher
 from dnsjax_torch.render.full import make_full_renderer

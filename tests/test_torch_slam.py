@@ -131,9 +131,9 @@ def _map_draws(key, window, loss_t):
     }
 
 
-def _map_cfgs(smooth_every=2):
+def _map_cfgs(smooth_every=2, taps=1):
     kw = dict(**CAM, n_pixels=90, n_samples=6, n_surface=4, smooth_pts=5,
-              smooth_every=smooth_every, feature_taps=1)
+              smooth_every=smooth_every, feature_taps=taps)
     return jmap.MapConfig(**kw), tmap.MapConfig(**kw)
 
 
@@ -151,12 +151,20 @@ def _grad_close(got, ref, tol, what):
     assert err <= tol * scale, f"{what}: max err {err} vs {tol} x {scale}"
 
 
-@pytest.mark.parametrize("dtype,it", [("float32", 0), ("float32", 1), ("bfloat16", 0)])
-def test_mapping_iteration_matches(scene, dtype, it):
+def _with_taps(cases):
+    """Each case at the nearest tap (its id unchanged) and at 4 taps."""
+    return ([pytest.param(*c, 1, id="-".join(map(str, c))) for c in cases]
+            + [pytest.param(*c, 4, id="-".join(map(str, c)) + "-taps4") for c in cases])
+
+
+@pytest.mark.parametrize("dtype,it,taps",
+                         _with_taps([("float32", 0), ("float32", 1), ("bfloat16", 0)]))
+def test_mapping_iteration_matches(scene, dtype, it, taps):
     """Same seven loss terms and the same gradient for every map parameter
-    and pose (it=0 evaluates the TV term at x2, it=1 skips it)."""
+    and pose (it=0 evaluates the TV term at x2, it=1 skips it), with the
+    nearest feature tap and with 4 bilinear taps."""
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    jcfg, tcfg = _map_cfgs()
+    jcfg, tcfg = _map_cfgs(taps=taps)
     window = _window(scene)
     quads, Ts = _poses(scene)
     loss_j = jmap._build_loss_fn(scene["jsp"], jcfg, 3, jdt)
@@ -237,10 +245,10 @@ def test_adam_step_matches_optax():
     np.testing.assert_array_equal(tq.numpy()[0], quads[0])  # frozen pose never moves
 
 
-def _track_setup(scene, n_pixels=60):
+def _track_setup(scene, n_pixels=60, taps=1):
     kw = dict(**CAM, n_pixels=n_pixels, n_samples=6, n_surface=4, ignore_edge=2,
-              feature_taps=1, lm_iters=1)
-    jcfg = jtrk.TrackConfig(**kw, method="lm")
+              feature_taps=taps, lm_iters=1, method="lm")
+    jcfg = jtrk.TrackConfig(**kw)
     tcfg = ttrk.TrackConfig(**kw)
     f = scene["frames"][2]
     from dnsjax.geometry.se3 import tensor_from_camera_np
@@ -290,7 +298,7 @@ def _jax_resid(scene, cfg, f, refer_w2c, enc, key, dtype):
         with grid_encode_override(hash_encode_fwd_mode):
             code = match_features(params, pts.reshape(-1, 3),
                                   jnp.stack([jnp.asarray(refer_w2c), w2c]), jnp.asarray(enc),
-                                  cfg.cam, bound, spec, dtype, taps=1
+                                  cfg.cam, bound, spec, dtype, taps=cfg.feature_taps
                                   ).reshape(cfg.n_pixels, S, -1)
             trunc = ((z >= gt_d[:, None] * 0.95) & (z <= gt_d[:, None] * 1.05)
                      & (gt_d[:, None] > 0))
@@ -318,12 +326,12 @@ LM_TOL = {"float32": dict(loss=1e-5, r=1e-5, J=1e-4, pose=2e-5, aux=1e-5),
           "bfloat16": dict(loss=1e-3, r=1e-3, J=1e-2, pose=2e-3, aux=1e-2)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lm_iteration_matches(scene, dtype):
+@pytest.mark.parametrize("dtype,taps", _with_taps([("float32",), ("bfloat16",)]))
+def test_lm_iteration_matches(scene, dtype, taps):
     """One LM linearisation: r, J (7 x m) by forward mode, JtJ, Jtr and the
-    damped step."""
+    damped step; nearest tap and 4 bilinear taps."""
     tol = LM_TOL[dtype]
-    jcfg, tcfg, f, t7, refer_w2c, enc = _track_setup(scene)
+    jcfg, tcfg, f, t7, refer_w2c, enc = _track_setup(scene, taps=taps)
     key = jax.random.PRNGKey(11)
     resid = _jax_resid(scene, jcfg, f, refer_w2c, enc, key, getattr(jnp, dtype))
     qt = (jnp.asarray(t7[:4]), jnp.asarray(t7[4:]))
@@ -397,9 +405,11 @@ def test_lm_solve_matches_make_track_fn(scene, dtype):
     draws = [_track_draws(k, jcfg) for k in jax.random.split(key, jcfg.lm_iters + 1)]
     tr = ttrk.Tracker(scene["tsp"], tcfg, getattr(torch, dtype))
     params = _torch_params(scene["jp"])
-    got = tr.track(params, T_(enc), T_(refer_w2c), T_(f["color"]),
-                   T_(f["depth"]), T_(f["label"]), T_(t7[:4]), T_(t7[4:]),
-                   T_(scene["bound"]), None, draws=draws).numpy()
+    got, n_run = tr.track(params, T_(enc), T_(refer_w2c), T_(f["color"]),
+                          T_(f["depth"]), T_(f["label"]), T_(t7[:4]), T_(t7[4:]),
+                          T_(scene["bound"]), None, draws=draws)
+    got = got.numpy()
+    assert n_run == int(metrics["n_iters_run"]) == 1
     assert not np.allclose(ref[:7], t7), "the reference rejected its step: nothing to compare"
     # the quaternion lies on the great circle through q0 and dnsjax's result
     unit = lambda q: q.astype(np.float64) / np.linalg.norm(q)

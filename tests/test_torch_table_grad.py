@@ -150,3 +150,60 @@ def test_table_grad_refuses_tensors_off_the_cpu_and_card():
     w = torch.zeros((4, 3, 4))
     with pytest.raises(ValueError):
         tsc.table_grad(ts, idx, w, torch.zeros((4, 3, 8), device="meta"))
+
+
+def _reference_level_draw(spec, idx, w, g):
+    """dnsjax's flat rows and values under ``grad_levels: 1``, as
+    _hash_encode_bwd builds them (dnsjax/ops/hashgrid.py:363-377) before its
+    flat float32 scatter."""
+    n, L = idx.shape[0], spec.n_levels
+    scatter_idx, contrib = jh._table_grad_contribs(spec, idx, w, g)
+    u2 = jh._stateless_uniform(idx[:, 0, 0], idx[:, -1, -1], 1)
+    l_star = jnp.minimum((u2 * L).astype(jnp.int32), L - 1)
+    lvl_hot = jnp.arange(L) == l_star[:, None]
+    lsel = lvl_hot.reshape((n, L) + (1,) * (contrib.ndim - 2))
+    contrib = jnp.sum(contrib * lsel.astype(contrib.dtype), axis=1) * L
+    isel = lvl_hot.reshape((n, L) + (1,) * (scatter_idx.ndim - 2))
+    scatter_idx = jnp.sum(scatter_idx * isel.astype(scatter_idx.dtype), axis=1)
+    F = spec.n_features
+    return (np.asarray(scatter_idx).reshape(-1), np.asarray(contrib).reshape(-1, F),
+            np.asarray(l_star))
+
+
+@pytest.mark.parametrize("interp", ["tet", "trilinear"])
+@pytest.mark.parametrize("all_corners", [False, True])
+@pytest.mark.parametrize("mode", ["pallas_sr", "xla"])
+def test_level_draw_inputs_bit_exact(mode, all_corners, interp):
+    """``grad_levels: 1``: each point keeps the level dnsjax draws, its rows
+    and its values times L bit for bit; float32 under ``pallas_sr`` too
+    (dnsjax never reaches its Pallas path in this mode); the other levels'
+    rows are -1 (dropped) with zero values."""
+    kw = dict(**BASE, n_features=2, interp=interp, gather_bf16=True, scatter=mode,
+              grad_corners=8 if all_corners else 1, grad_levels=1)
+    js, ts = jh.HashGridSpec(**kw), th.HashGridSpec(**kw)
+    idx, w, g = _residuals(50, js)
+    rows, vals, l_star = _reference_level_draw(js, jnp.asarray(idx), jnp.asarray(w),
+                                               jnp.asarray(g))
+    assert len(set(l_star.tolist())) == 3  # every level drawn somewhere
+    tidx = torch.tensor(idx)
+    np.testing.assert_array_equal(th._level_draw(ts, tidx).numpy(), l_star)
+    li, lv = tsc.table_grad_inputs(ts, tidx, torch.tensor(w), torch.tensor(g))
+    L, M = li.shape
+    kept = li.numpy() >= 0
+    assert (kept.sum(0) == 1).all()  # one level a contribution
+    lk = kept.argmax(0)
+    got_rows = li.numpy()[lk, np.arange(M)] + lk * ts.table_size
+    got_vals = lv.numpy()[lk, np.arange(M)]
+    np.testing.assert_array_equal(got_rows, rows)
+    np.testing.assert_array_equal(got_vals.view(np.uint32), vals.view(np.uint32))
+    assert (lv.numpy()[~kept] == 0).all()
+    # one level of the spec: nothing drawn, nothing rounded
+    one = dict(kw, n_levels=1, desired_resolution=4)
+    js1, ts1 = jh.HashGridSpec(**one), th.HashGridSpec(**one)
+    idx1, w1, g1 = _residuals(51, js1)
+    ref = jh._table_grad_contribs(js1, jnp.asarray(idx1), jnp.asarray(w1), jnp.asarray(g1))
+    li1, lv1 = tsc.table_grad_inputs(ts1, torch.tensor(idx1), torch.tensor(w1),
+                                     torch.tensor(g1))
+    np.testing.assert_array_equal(li1.numpy().reshape(-1), np.asarray(ref[0]).reshape(-1))
+    np.testing.assert_array_equal(lv1.numpy().reshape(-1).view(np.uint32),
+                                  np.asarray(ref[1]).reshape(-1).view(np.uint32))
