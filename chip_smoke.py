@@ -29,14 +29,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      of kernel, twin and, for the scatters, ``index_add_``, beside each
      shape's bytes bound
      (``bound_ms``, ``bound_share``; the encode counts the table rows its
-     points touch);
+     points touch) and, for the encode, ``embedding_bag`` on the twin's rows
+     and weights (the gather-and-sum half); ``encodings.dense_grid_encode``
+     (the factory's 4-level dense grid, 16..64, 2^19 rows) on 131,072
+     points with and without residuals against the encode twin, timed;
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
      card (all 40 frames unless --end-frame) with ``mapping.vis_every=20``,
      ``mapping.mesh_every=20`` and ``mapping.checkpoint_every=20``, then ATE
      RMSE of the written model.npz, last keystep PSNR, the hooks' walls and
-     the kernels' launch counts in that run; then a torch.profiler
-     breakdown of one mapping call and one tracked frame, with the port's
-     kernels' device time on the run's data;
+     the kernels' launch counts in that run; every ``track`` event of its
+     ``metrics.jsonl`` with 12 finite floats of ``c2w`` and ``gt_c2w``, and
+     ``eval_ate``'s ``ate.png``; then a torch.profiler breakdown of one
+     mapping call and one tracked frame, with the port's kernels' device
+     time on the run's data;
   3b. parity: the same scene at ``scripts/ab_quality.py``'s reference-parity
      settings (16 x 2 trilinear grid, exact float32 backward, float32
      compute, 4 feature taps, Adam tracking of 50 iterations, no early
@@ -48,10 +53,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (300 rays x 100 iterations) on frame 39 for its two least-seen classes:
      finite losses, a changed map, 200 table-gradient launches (the rays'
      encode and the TV sub-grid's, each iteration);
+  3d. gate smoke: ``dnsjax_torch.eval.ab_quality.run_variant`` of the
+     adopted bundle (``ns16-m50-map10-lm8``), 12 frames, scored on the
+     ``@kf`` protocol (frames 4 and 11): ATE and PSNR bounds, finite mIoU,
+     both kernels launched;
   4. outputs: ``dnsjax_torch.cli.extract_mesh --resolution 256`` and
      ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
      encode kernel's launches in each; sanity bounds on the mesh and the
-     metrics;
+     metrics; ``eval_3d`` of the 256^3 mesh against ``mesh_20.ply`` (4
+     virtual views through the native raycaster) and against itself, and
+     ``eval_semantic`` over eval_2d's renders;
   5. no module of jax or of the dnsjax package in the process.
 Prints a JSON line of per-kernel results, then the device line last.
 """
@@ -163,6 +174,27 @@ def _encode_bytes(spec, N: int, want_res: bool, flat_idx) -> int:
 def _scatter_bytes(M: int, F: int, out_rows: int) -> int:
     """id 4 B and values 4F B a contribution, plus the output once."""
     return M * (4 + 4 * F) + out_rows * 4 * F
+
+
+def _embedding_bag(spec, table, idx, w, want):
+    """The one PyTorch call that computes the encode's gather-and-sum half
+    (the yardstick only: the port never calls it): ``embedding_bag`` over
+    the twin's corner rows ``idx`` (N, L, C) and weights ``w``, on the table
+    bf16-rounded under ``gather_bf16``; the hashing and the weights, which
+    the kernel computes too, are not in it. Checked against ``want`` (the
+    kernel's output) to 1e-5: the same products summed in another order."""
+    import torch
+
+    N, L, C = idx.shape
+    rows = table.reshape(-1, spec.n_features)
+    if spec.gather_bf16:
+        rows = rows.to(torch.bfloat16).to(torch.float32)
+    ids, ws = idx.reshape(N * L, C).long(), w.reshape(N * L, C).contiguous()
+    fn = lambda: torch.nn.functional.embedding_bag(ids, rows, per_sample_weights=ws, mode="sum")
+    err = _max_err(fn().reshape(N, L * spec.n_features), want)
+    if err > 1e-5:
+        raise AssertionError(f"embedding_bag computes another function: max err {err}")
+    return fn
 
 
 def _index_add(rows, vals, out_rows):
@@ -378,7 +410,8 @@ def check_kernels(results, plain_shapes):
             fwd["shapes"].append(_timed_row(
                 f"{name} N={N}", _encode_bytes(spec, N, True, ref[2]),
                 lambda: gather.encode_forward(pts, table, spec, True),
-                lambda: gather.encode_forward_plain(pts, table, spec, True)))
+                lambda: gather.encode_forward_plain(pts, table, spec, True),
+                _embedding_bag(spec, table, ref[2], ref[3], got[0])))
         if name == "textured-map":
             textured_grad = scatter.table_grad_inputs(spec, idx, w, gl) + (T,)
             sca["shapes"].append(_time_table_grad(name, spec, idx, w, gl))
@@ -420,12 +453,65 @@ def check_kernels(results, plain_shapes):
         if err > 1e-6:
             raise AssertionError(f"{name} forward mismatch: {err}")
         fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
-        flat_idx = gather.encode_forward_plain(pts, table, spec, True)[2]
+        _, _, flat_idx, flat_w, _ = gather.encode_forward_plain(pts, table, spec, True)
         fwd["shapes"].append(_timed_row(
             f"{name} N={N} no residuals", _encode_bytes(spec, N, False, flat_idx),
             lambda: gather.encode_forward(pts, table, spec, False),
-            lambda: gather.encode_forward_plain(pts, table, spec, False)))
+            lambda: gather.encode_forward_plain(pts, table, spec, False),
+            _embedding_bag(spec, table, flat_idx, flat_w, got)))
+    dense_launches = check_dense_grid(fwd, gen)
     check_sorted_scatter(results["sorted_scatter_add"], textured_grad, gen)
+    return dense_launches
+
+
+def check_dense_grid(fwd, gen):
+    """``encodings.dense_grid_encode`` on the card: the factory's 4-level
+    dense grid (resolutions 16..64, 65^3 <= 2^19 rows, 2 float32 features,
+    trilinear) on 131,072 points, with residuals (grad mode on) and without
+    (``torch.no_grad``), against the encode twin; the kernel's rows and ids
+    exact, the output to 1e-6; then timed as the other encode rows. Returns
+    the kernels' launches of the two ``dense_grid_encode`` calls."""
+    import torch
+
+    from dnsjax_torch.ops import encodings, gather
+
+    dev = torch.device("cuda")
+    enc, out_dim, params = encodings.get_encoder(
+        "dense", base_resolution=16, desired_resolution=64, log2_hashmap_size=19, device=dev)
+    spec = encodings.HashGridSpec(4, 2, 19, 16, 64)  # what the factory builds
+    table = params["table"] * 1e4  # O(1) features
+    N = 131072
+    pts = torch.rand((N, 3), generator=gen, device=dev)
+    _reset_counts()
+    with torch.enable_grad():
+        out_res = enc({"table": table}, pts)
+    with torch.no_grad():
+        out_plain = enc({"table": table}, pts)
+    torch.cuda.synchronize()
+    launches = _counts()
+    ref = gather.encode_forward_plain(pts, table, spec, True)
+    got = gather.encode_forward(pts, table, spec, True)
+    torch.cuda.synchronize()
+    errs = {label: _max_err(a, b) for label, a, b in
+            zip(("out", "feats", "idx", "w", "aux"), got, ref)}
+    errs.update(dense_res=_max_err(out_res, ref[0]), dense_no_res=_max_err(out_plain, ref[0]))
+    print("kernel check " + json.dumps(dict(case="dense-grid", N=N, out_dim=out_dim,
+                                            launches=launches, **errs)), flush=True)
+    if (max(errs["out"], errs["w"], errs["dense_res"], errs["dense_no_res"]) > 1e-6
+            or errs["feats"] or errs["idx"] or errs["aux"]):
+        raise AssertionError(f"dense grid forward mismatch: {errs}")
+    if launches["hash_encode_fwd"] != 2:
+        raise AssertionError(f"dense_grid_encode did not run the encode kernel: {launches}")
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["out"], errs["dense_res"],
+                             errs["dense_no_res"])
+    for want_res in (True, False):
+        fwd["shapes"].append(_timed_row(
+            f"dense-grid N={N}" + ("" if want_res else " no residuals"),
+            _encode_bytes(spec, N, want_res, ref[2]),
+            lambda: gather.encode_forward(pts, table, spec, want_res),
+            lambda: gather.encode_forward_plain(pts, table, spec, want_res),
+            _embedding_bag(spec, table, ref[2], ref[3], got[0])))
+    return launches
 
 
 def check_sorted_scatter(res, textured_grad, gen):
@@ -591,7 +677,36 @@ def run_slam(end_frame):
                    or "00020.jpg" not in panels
                    or not os.path.exists(os.path.join(OUT, "model_20.npz"))):
         raise AssertionError(f"the output hooks did not run at frame 20: {summary}, {panels}")
+    check_run_logs(slam)
     return slam, launches
+
+
+def check_run_logs(slam):
+    """Phase 3's logs: every tracked frame's ``track`` event in
+    ``metrics.jsonl`` carries ``c2w`` and ``gt_c2w`` as 12 finite floats;
+    then ``eval_ate.main`` writes ``ate.png``, non-empty and readable by
+    OpenCV."""
+    import cv2
+    import numpy as np
+
+    from dnsjax_torch.cli import eval_ate
+
+    with open(os.path.join(OUT, "metrics.jsonl")) as f:
+        tracks = [e for e in map(json.loads, f) if e["event"] == "track"]
+    poses_ok = len(tracks) == len(slam.track_times) > 0 and all(
+        len(e[k]) == 12 and np.isfinite(e[k]).all() for e in tracks for k in ("c2w", "gt_c2w"))
+    stats = eval_ate.main([CONFIG, "--output", OUT])
+    png = os.path.join(OUT, "ate.png")
+    img = cv2.imread(png) if os.path.exists(png) else None
+    line = dict(track_events=len(tracks), tracked_frames=len(slam.track_times),
+                poses_ok=poses_ok, ate_rmse_m=stats["absolute_translational_error.rmse"],
+                ate_png_bytes=os.path.getsize(png) if img is not None else 0,
+                ate_png_shape=None if img is None else list(img.shape))
+    print("run_logs " + json.dumps(line), flush=True)
+    if not poses_ok:
+        raise AssertionError(f"track events without 12 finite pose floats each: {line}")
+    if img is None or line["ate_png_bytes"] == 0:
+        raise AssertionError(f"eval_ate wrote no readable ate.png: {line}")
 
 
 def run_parity(end_frame: int = 12):
@@ -694,7 +809,76 @@ def run_outputs(slam):
         raise AssertionError(f"eval_2d PSNR {psnr} not > 20 dB")
     if line["launches"]["hash_encode_fwd"] <= 0:
         raise AssertionError("the encode kernel never launched during eval_2d")
+    check_eval_cli(len(res["rows"]))
     return {"extract_mesh": mesh_launches, "eval_2d": line["launches"]}
+
+
+def check_eval_cli(n_eval_frames: int):
+    """Phase 4's host CLIs: ``eval_3d`` of the 256^3 mesh against the run's
+    ``mesh_20.ply`` with 4 virtual views (finite, views traced by the native
+    raycaster) and against itself (two independent 200k-sample draws of one
+    surface: accuracy and completion < 2 cm, ratio > 99 %); ``eval_semantic``
+    over eval_2d's ``renders/`` (all its frames, finite mIoU)."""
+    import numpy as np
+
+    from dnsjax_torch.cli import eval_3d, eval_semantic
+    from dnsjax_torch.mesh import raycast
+    from dnsjax_torch.models.checkpoint import load_checkpoint
+
+    idx = load_checkpoint(os.path.join(OUT, "model.npz"))["meta"]["idx"]
+    mesh = os.path.join(OUT, f"mesh_{idx}.ply")
+    mesh20 = os.path.join(OUT, "mesh_20.ply")
+    t0 = time.perf_counter()
+    against = eval_3d.main([mesh, mesh20, "--depth-views", "4"]) \
+        if os.path.exists(mesh20) else None
+    t1 = time.perf_counter()
+    itself = eval_3d.main([mesh, mesh])
+    t2 = time.perf_counter()
+    sem = eval_semantic.main([CONFIG, "--renders", os.path.join(OUT, "renders")])
+    line = dict(mesh=os.path.basename(mesh), against_mesh_20=against, against_s=t1 - t0,
+                itself=itself, itself_s=t2 - t1, raycaster_loaded=raycast.load() is not None,
+                eval_semantic=sem, eval_semantic_s=time.perf_counter() - t2)
+    print("eval_cli " + json.dumps(line), flush=True)
+    if against is not None and not (
+            all(np.isfinite(v) for v in against.values()) and against["n_valid_views"] > 0):
+        raise AssertionError(f"eval_3d against mesh_20.ply: {against}")
+    if not line["raycaster_loaded"]:
+        raise AssertionError("the native raycaster did not load")
+    if not (itself["accuracy_cm"] < 2 and itself["completion_cm"] < 2
+            and itself["completion_ratio_pct"] > 99):
+        raise AssertionError(f"eval_3d of the mesh against itself: {itself}")
+    if sem["n_frames"] != n_eval_frames or not np.isfinite(sem["miou"]):
+        raise AssertionError(f"eval_semantic: {sem}, eval_2d rendered {n_eval_frames} frames")
+
+
+OUT_GATE = os.path.join(ROOT, "output", "chip_smoke_gate")
+
+
+def run_gate_smoke(frames: int = 12):
+    """Phase 3d: the A/B gate's ``run_variant`` of the adopted bundle
+    (``ns16-m50-map10-lm8``) at full size, cut to ``frames`` frames and
+    scored on the ``@kf`` protocol (frames 4 and 11 at 12); sanity bounds
+    ATE < 0.3 m and PSNR > 20 dB, finite mIoU, both kernels launched."""
+    import numpy as np
+
+    from dnsjax_torch.eval import ab_quality
+
+    name = "ns16-m50-map10-lm8"
+    _reset_counts()
+    t0 = time.perf_counter()
+    r = ab_quality.run_variant(name, ab_quality.VARIANTS[name], frames, False, 7, seed=0,
+                               protocol="kf", device="cuda", out=OUT_GATE)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    line = dict(variant=name, frames=frames, scored=list(range(4, frames, 7)), **r,
+                phase_wall_s=wall, launches=launches)
+    print("ab_quality_smoke " + json.dumps(line), flush=True)
+    if not (r["ate_rmse_m"] < 0.3 and r["psnr_db"] > 20.0 and np.isfinite(r["miou"])
+            and np.isfinite(r["depth_l1_cm"])):
+        raise AssertionError(f"gate smoke outside its sanity bounds: {line}")
+    if min(launches["hash_encode_fwd"], launches["scatter_add"]) <= 0:
+        raise AssertionError(f"a kernel of the gate smoke never launched: {launches}")
+    return launches
 
 
 def profile_slam(slam, n_iters: int = 20, name: str = "slam", idx=None):
@@ -784,14 +968,14 @@ def main(argv=None):
                           shapes=[])
                for name, source, replaces in kernels}
     t0 = time.perf_counter()
-    check_kernels(results, plain_encode_shapes())
+    dense_counts = check_kernels(results, plain_encode_shapes())
     print(f"phase kernels wall {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     slam, launches = run_slam(args.end_frame)
     print(f"phase slam wall {time.perf_counter() - t0:.2f} s", flush=True)
     for k, v in launches.items():
         results[k]["launches"] = v
-        results[k]["launches_by_path"] = {"slam": v}
+        results[k]["launches_by_path"] = {"slam": v, "encodings_dense": dense_counts[k]}
     t0 = time.perf_counter()
     profile_slam(slam)
     print(f"phase profile wall {time.perf_counter() - t0:.2f} s", flush=True)
@@ -816,6 +1000,11 @@ def main(argv=None):
             results[k]["launches_by_path"]["resume"] = counts[k]
             results[k]["launches_by_path"]["decoder_init"] = init_counts[k]
         print(f"phase resume wall {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    gate_counts = run_gate_smoke(min(args.end_frame or 12, 12))
+    for k, v in gate_counts.items():
+        results[k]["launches_by_path"]["ab_quality_smoke"] = v
+    print(f"phase gate smoke wall {time.perf_counter() - t0:.2f} s", flush=True)
     imported = sorted(m for m in sys.modules if m in ("jax", "dnsjax")
                       or m.startswith(("jax.", "jaxlib", "dnsjax.", "_dnsjax_mesh_")))
     if imported:

@@ -23,6 +23,58 @@ import time
 import numpy as np
 
 
+def nearest_keyframes(kf_c2w: np.ndarray, c2w: np.ndarray) -> list:
+    """The three keyframes nearest to ``c2w`` by camera position, padded
+    with the last one when fewer exist."""
+    d = np.linalg.norm(kf_c2w[:, :3, 3] - c2w[:3, 3][None], axis=-1)
+    near = np.argsort(d)[:3].tolist()
+    return (near + [near[-1]] * 3)[:3]
+
+
+class FrameRenderer:
+    """Renders a frame of a map at its estimated pose for evaluation:
+    conditioned on the three nearest keyframe views (``kf_c2w`` (K, 4, 4)
+    numpy, ``kf_colors`` indexable by slot; each slot encoded once) or,
+    without keyframes, on the frame's own image three times; frame ``idx``
+    draws its z values from a generator seeded with ``idx``. The protocol of
+    dnsjax's eval_2d and of the A/B gate's ``@kf`` scoring."""
+
+    def __init__(self, renderer, params, encode, bound, device, kf_c2w=None, kf_colors=None):
+        self.renderer, self.params, self.encode = renderer, params, encode
+        self.bound, self.device = bound, device
+        self.kf_c2w, self.kf_colors = kf_c2w, kf_colors
+        self._kf_feats = {}
+
+    def _kf_feat(self, k: int):
+        import torch
+
+        if k not in self._kf_feats:
+            color = torch.as_tensor(self.kf_colors[k], device=self.device)
+            self._kf_feats[k] = self.encode(color[None])[0]
+        return self._kf_feats[k]
+
+    def __call__(self, idx: int, frame, c2w_np: np.ndarray):
+        """(color (H,W,3), depth (H,W), logits (H,W,C)) on the device."""
+        import torch
+
+        from dnsjax_torch.geometry.se3 import invert_se3
+
+        dev = self.device
+        c2w = torch.as_tensor(c2w_np, device=dev)
+        if self.kf_colors is not None:
+            near = nearest_keyframes(self.kf_c2w, c2w_np)
+            refer_c2w = torch.as_tensor(self.kf_c2w[near], device=dev)
+            feats = torch.stack([self._kf_feat(k) for k in near])
+        else:
+            refer_c2w = torch.stack([c2w, c2w, c2w])
+            feats = self.encode(torch.as_tensor(frame["color"], device=dev)[None]
+                                .repeat(3, 1, 1, 1))
+        gen = torch.Generator(device=dev).manual_seed(idx)
+        return self.renderer(self.params, c2w, torch.as_tensor(frame["depth"], device=dev),
+                             torch.as_tensor(frame["label"], device=dev),
+                             invert_se3(refer_c2w), feats, self.bound, gen)
+
+
 def evaluate(argv=None):
     """The evaluation; returns {"avg", "rows", "render_s"} (per-frame render
     wall, host clock, the device result fetched)."""
@@ -43,7 +95,6 @@ def evaluate(argv=None):
     from dnsjax_torch.eval.render_metrics import ms_ssim, psnr, ssim
     from dnsjax_torch.eval.semantic import semantic_metrics
     from dnsjax_torch.eval.lpips import lpips
-    from dnsjax_torch.geometry.se3 import invert_se3
     from dnsjax_torch.models.encoder import encode_images
     from dnsjax_torch.render.full import make_full_renderer
 
@@ -52,23 +103,18 @@ def evaluate(argv=None):
     trn = m["cfg"]["training"]
     renderer = make_full_renderer(m["spec"], m["cam"], int(trn["n_samples_ray"]),
                                   int(trn["n_surface_ray"]), compute_dtype=m["dtype"])
-    bound = torch.as_tensor(m["bound"], device=dev)
     est = ckpt["estimate_c2w"]
-    encode = lambda imgs: encode_images(m["enc"], imgs, m["dtype"])
 
     kf_colors = ckpt.get("kf/colors")
     use_kf_refs = kf_colors is not None and not args.self_refs
-    if use_kf_refs:
-        kf_c2w = np.asarray(ckpt["kf/est_c2w"])
-        kf_cache = {}
-
-        def kf_feats(k: int):
-            if k not in kf_cache:
-                kf_cache[k] = encode(torch.as_tensor(kf_colors[k], device=dev)[None])[0]
-            return kf_cache[k]
-    elif not args.self_refs:
+    if not use_kf_refs and not args.self_refs:
         print("WARNING: checkpoint has no keyframe images; falling back to "
               "self-conditioned reference views (optimistic metrics)")
+    render = FrameRenderer(
+        renderer, m["params"], lambda imgs: encode_images(m["enc"], imgs, m["dtype"]),
+        torch.as_tensor(m["bound"], device=dev), dev,
+        kf_c2w=np.asarray(ckpt["kf/est_c2w"]) if use_kf_refs else None,
+        kf_colors=kf_colors if use_kf_refs else None)
 
     os.makedirs(os.path.join(out, "renders"), exist_ok=True)
     rows, walls = [], []
@@ -78,20 +124,7 @@ def evaluate(argv=None):
     for idx in range(0, n, args.every):
         f = ds[idx]
         t0 = time.perf_counter()
-        c2w = torch.as_tensor(est[idx], device=dev)
-        if use_kf_refs:
-            d = np.linalg.norm(kf_c2w[:, :3, 3] - est[idx][:3, 3][None], axis=-1)
-            near = np.argsort(d)[:3].tolist()
-            near = (near + [near[-1]] * 3)[:3]  # pad if < 3 keyframes
-            refer_c2w = torch.as_tensor(kf_c2w[near], device=dev)
-            feats = torch.stack([kf_feats(k) for k in near])
-        else:
-            refer_c2w = torch.stack([c2w, c2w, c2w])
-            feats = encode(torch.as_tensor(f["color"], device=dev)[None].repeat(3, 1, 1, 1))
-        gen = torch.Generator(device=dev).manual_seed(idx)
-        color, depth, logits = renderer(
-            m["params"], c2w, torch.as_tensor(f["depth"], device=dev),
-            torch.as_tensor(f["label"], device=dev), invert_se3(refer_c2w), feats, bound, gen)
+        color, depth, logits = render(idx, f, est[idx])
         color = color.cpu().numpy()
         pred_label = logits.argmax(-1).cpu().numpy()
         walls.append(time.perf_counter() - t0)

@@ -1,5 +1,9 @@
 """ATE evaluation from a checkpoint of either package:
-``python -m dnsjax_torch.cli.eval_ate <config> [--output DIR]``."""
+``python -m dnsjax_torch.cli.eval_ate <config> [--output DIR]``.
+
+As dnsjax.cli.eval_ate: Horn-aligned ATE statistics of the frames the
+checkpoint covers, printed as JSON, and the trajectory plot ``<out>/ate.png``
+(drawn by ``dnsjax_torch.viz.ate_plot`` with OpenCV)."""
 
 from __future__ import annotations
 
@@ -8,14 +12,21 @@ import json
 import os
 
 
-def ate_stats(checkpoint_path: str):
-    """Horn-aligned ATE statistics of the frames a ``model.npz`` covers."""
+def ate_stats(checkpoint_path: str, plot_path=None):
+    """Horn-aligned ATE statistics of the frames a ``model.npz`` covers; with
+    ``plot_path``, also the trajectory plot there."""
     from dnsjax_torch.eval.ate import evaluate_ate
     from dnsjax_torch.models.checkpoint import load_checkpoint
 
     ckpt = load_checkpoint(checkpoint_path)
     n = ckpt["meta"]["idx"] + 1
-    return evaluate_ate(ckpt["estimate_c2w"][:n], ckpt["gt_c2w"][:n])
+    est, gt = ckpt["estimate_c2w"][:n], ckpt["gt_c2w"][:n]
+    stats = evaluate_ate(est, gt)
+    if plot_path is not None:
+        from dnsjax_torch.viz.ate_plot import write_ate_plot
+
+        write_ate_plot(plot_path, est, gt, stats["absolute_translational_error.rmse"])
+    return stats
 
 
 def main(argv=None):
@@ -29,7 +40,8 @@ def main(argv=None):
 
     cfg = load_run_config(args.config)
     out = args.output or os.path.join(cfg.get("out_dir", "output"), cfg.get("scene", "scene"))
-    stats = ate_stats(args.checkpoint or os.path.join(out, "model.npz"))
+    stats = ate_stats(args.checkpoint or os.path.join(out, "model.npz"),
+                      plot_path=os.path.join(out, "ate.png"))
     print(json.dumps({k: v for k, v in stats.items() if not hasattr(v, "shape")}, indent=2))
     return stats
 

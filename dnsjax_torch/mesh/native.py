@@ -37,6 +37,19 @@ def _build(src: str, out: str) -> bool:
     return False
 
 
+def build_if_stale(src: str, so: str) -> bool:
+    """Build ``src`` into ``so`` unless ``so`` is newer; False if that fails.
+    Built under a private name and renamed: parallel processes may race."""
+    if os.path.exists(so) and os.path.getmtime(so) > os.path.getmtime(src):
+        return True
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    if not _build(src, tmp):
+        return False
+    os.replace(tmp, so)
+    return True
+
+
 def load() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
@@ -45,15 +58,8 @@ def load() -> Optional[ctypes.CDLL]:
     if os.environ.get("DNSJAX_NO_NATIVE"):
         return None
     src, so = _SRC, _SO
-    if not os.path.exists(src):
+    if not os.path.exists(src) or not build_if_stale(src, so):
         return None
-    if not os.path.exists(so) or os.path.getmtime(so) <= os.path.getmtime(src):
-        # built under a private name and renamed: parallel processes may race
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        if not _build(src, tmp):
-            return None
-        os.replace(tmp, so)
     try:
         lib = ctypes.CDLL(so)
     except OSError:

@@ -15,7 +15,10 @@ are inserted every ``choose_keyframe_every`` frames; the run ends with
 residual panel and ``mapping.mesh_every`` a mesh; both read the map and
 change nothing, and are timed apart from tracking and mapping.
 ``resume`` restores a checkpoint of either package; ``run(start_frame=k)``
-then continues from frame k.
+then continues from frame k. Each tracked frame and keystep appends an
+event to ``metrics.jsonl`` (a track event carries the estimated and GT
+poses); under ``verbose`` the FRONT and BACK lines also go to
+``output_front.txt`` and ``output_back_fine.txt``, as in dnsjax.
 
 Config values the port does not implement raise ``NotImplementedError``
 naming their ROADMAP.md item, rather than silently running something else.
@@ -423,6 +426,8 @@ class DNSSLAM:
                  "feats": cur_feats[None]}
         losses = self.decoder_init_fn(self.params, frame, mask, self.gen)
         self.decoder_inits.append({"frame": cur["index"], "classes": list(classes)})
+        self._log_metric(event="decoder_init", frame=cur["index"], classes=list(classes),
+                         iters=int(losses.shape[0]))
         return losses
 
     def _keystep(self, idx: int, cur) -> None:
@@ -433,13 +438,14 @@ class DNSSLAM:
         for o in range(2):
             mode = "overlap" if o % 2 == 0 else "global"
             aux, cur_c2w = self.map_once(idx, cur, self.n_iters // 2, mode, False, cur_c2w)
+        t_dispatch = time.perf_counter() - t0  # host time until the enqueue returns
         if self.is_ba:
             self.estimate_c2w[idx] = cur_c2w.cpu().numpy()
             if idx in self.keyframes.frame_ids:
                 self.keyframes.update_pose(self.keyframes.frame_ids.index(idx), cur_c2w)
-        self._finish_map(idx, aux, t0)
+        self._finish_map(idx, aux, t0, t_dispatch)
 
-    def _finish_map(self, idx: int, aux, t0: float) -> None:
+    def _finish_map(self, idx: int, aux, t0: float, t_dispatch: float) -> None:
         pk = torch.stack([aux["p_loss"], aux["d_loss"], aux["l_loss"], aux["lt_loss"]])
         p_loss, d_loss, l_loss, lt_loss = (float(v) for v in pk.cpu().numpy())
         self._sync()
@@ -448,11 +454,13 @@ class DNSSLAM:
         self.last_map_aux = dict(frame=idx, p_loss=p_loss, d_loss=d_loss,
                                  l_loss=l_loss, lt_loss=lt_loss, psnr=psnr)
         if self.verbose:
-            print(f"Frame {idx} BACK: rgb {p_loss:.4f} psnr {psnr:.2f} d {d_loss:.4f} "
-                  f"l {l_loss:.4f} lt {lt_loss:.4f} {self.map_times[-1]:.2f}s", flush=True)
+            t_block = self.map_times[-1] - t_dispatch
+            self._log_line("output_back_fine.txt",
+                           f"Frame {idx} BACK: rgb {p_loss:.4f} psnr {psnr:.2f} d {d_loss:.4f} "
+                           f"l {l_loss:.4f} lt {lt_loss:.4f} {t_dispatch:.1f}+{t_block:.1f}s")
         self._log_metric(event="map", frame=idx, p_loss=p_loss, d_loss=d_loss,
                          l_loss=l_loss, lt_loss=lt_loss, seconds=self.map_times[-1],
-                         n_keyframes=self.keyframes.count)
+                         dispatch_seconds=t_dispatch, n_keyframes=self.keyframes.count)
 
     # ------------------------------------------------------------------
     def frame_vis(self, idx: int, cur) -> None:
@@ -533,12 +541,21 @@ class DNSSLAM:
         p_loss, d_loss = float(pk[8]), float(pk[9])
         if self.verbose:
             err = float(np.abs(tensor_from_camera_np(cur["host"]["c2w"]) - pk[:7]).mean())
-            print(f"Frame {idx} FRONT: rgb {p_loss:.4f} d {d_loss:.4f} "
-                  f"ATE~{err:.6f} {dt:.2f}s", flush=True)
+            psnr = -10.0 * np.log10(max(p_loss, 1e-12))
+            self._log_line("output_front.txt",
+                           f"Frame {idx} FRONT: rgb {p_loss:.4f} psnr {psnr:.2f} "
+                           f"d {d_loss:.4f} ATE~{err:.6f} {dt:.2f}s")
         self._log_metric(event="track", frame=idx, p_loss=p_loss, d_loss=d_loss,
                          best_loss=best_loss, retried=retried, n_iters_run=n_run,
-                         seconds=dt)
+                         seconds=dt, c2w=np.round(c2w[:3, :4], 6).reshape(-1).tolist(),
+                         gt_c2w=np.round(self.gt_c2w[idx][:3, :4], 6).reshape(-1).tolist())
         return c2w
+
+    def _log_line(self, name: str, line: str) -> None:
+        """Print a verbose log line and append it to ``<out>/<name>``."""
+        print(line, flush=True)
+        with open(os.path.join(self.out_dir, name), "a") as f:
+            f.write(line + "\n")
 
     def _log_metric(self, **kw) -> None:
         kw["t"] = time.time()

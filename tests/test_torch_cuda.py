@@ -16,7 +16,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from dnsjax_torch.ops import gather, hashgrid, scatter
+from dnsjax_torch.ops import encodings, gather, hashgrid, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +66,24 @@ def _table_grad_bound(spec, idx, w, g):
     cancel), plus 1e-7."""
     li, lv = scatter.table_grad_inputs(spec, idx, w, g)
     return 1e-7 + 1e-5 * scatter.scatter_add_plain(li, lv.abs(), spec.table_size)
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_dense_grid_encode_runs_the_kernel(dev, grad):
+    """``encodings.dense_grid_encode`` on a CUDA table goes through
+    ``hash_encode``'s dispatch to the encode kernel (one launch), with and
+    without residuals, and matches the plain twin within 1e-6."""
+    enc, _, params = encodings.get_encoder("dense", base_resolution=4, desired_resolution=16,
+                                           log2_hashmap_size=13, device=dev)
+    spec = encodings.HashGridSpec(4, 2, 13, 4, 16)
+    table = params["table"] * 1e4
+    pts = torch.rand((3000, 3), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    before = gather.LAUNCHES
+    with torch.set_grad_enabled(grad):
+        got = enc({"table": table}, pts)
+    assert gather.LAUNCHES == before + 1
+    ref = gather.encode_forward_plain(pts, table, spec, False)[0]
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("F", [2, 8, 16])

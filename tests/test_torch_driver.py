@@ -3,9 +3,14 @@ unsupported-config guard and the config values ported since it was added,
 the whole slice on the CPU (``python -m dnsjax_torch.cli.run
 configs/synthetic/synthetic.yaml --device cpu``, cut to 6 frames and a few
 iterations) ending in a finite ATE and a model.npz that dnsjax loads,
-resuming from either package's checkpoints, and the decoder warm-up's
-trigger past frame 50."""
+resuming from either package's checkpoints, the decoder warm-up's
+trigger past frame 50, and the run logs (``metrics.jsonl`` events with the
+track events' poses, ``output_front.txt``, ``output_back_fine.txt``)
+against dnsjax's. Runtime budget: ~2 min on one core (the log comparison
+~30 s, most of it dnsjax's compiles)."""
 
+import copy
+import json
 import os
 
 import jax
@@ -255,6 +260,57 @@ def test_resume_checkpoint_written_by_dnsjax(tmp_path):
     np.testing.assert_array_equal(slam.gt_c2w, gt)
     assert slam.exist_decoders == {0: 3, 2: 1} and slam.keyframes.frame_ids == [0, 3]
     np.testing.assert_array_equal(slam.keyframes.labels[1].numpy(), slam.dataset[3]["label"])
+
+
+def _events(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _lines(out, name):
+    with open(os.path.join(out, name)) as f:
+        return f.read().splitlines()
+
+
+def test_run_logs_match_dnsjax(tmp_path):
+    """Both drivers, 5 frames of the synthetic scene with ``verbose: true``:
+    the same events in the same order, each carrying every key dnsjax's
+    carries (the port adds ``n_iters_run``; its ``dispatch_seconds`` is the
+    host time until a keystep's calls return); the track events' poses as 12
+    floats, ``gt_c2w`` equal to dnsjax's and to the dataset's, ``c2w`` equal
+    to the driver's estimate and to dnsjax's: with ``tracking.lm_iters=0``
+    tracking does not act, so both drivers keep the constant-velocity pose
+    that the GT poses of frames 0 and 1 start; ``output_front.txt`` and ``output_back_fine.txt`` with the same
+    lines (one per tracked frame, one per keystep) and prefixes, the FRONT
+    line carrying ``psnr``."""
+    from dnsjax.slam.driver import DNSSLAM as JaxSLAM
+
+    cfg = _cfg("tracking.lm_iters=0")
+    cfg["verbose"] = True
+    js = JaxSLAM(copy.deepcopy(cfg), output_dir=str(tmp_path / "j"))
+    js.run(end_frame=5)
+    ts = tdrv.DNSSLAM(copy.deepcopy(cfg), output_dir=str(tmp_path / "t"), device="cpu")
+    ts.run(end_frame=5)
+    jev, tev = _events(tmp_path / "j"), _events(tmp_path / "t")
+    assert [e["event"] for e in tev] == [e["event"] for e in jev]
+    assert [e["event"] for e in tev].count("track") == 3
+    for t, j in zip(tev, jev):
+        assert set(t) >= set(j), (t["event"], set(j) - set(t))
+    tracks = [(t, j) for t, j in zip(tev, jev) if t["event"] == "track"]
+    for t, j in tracks:
+        frame = t["frame"]
+        assert frame == j["frame"] and len(t["c2w"]) == len(t["gt_c2w"]) == 12
+        assert t["gt_c2w"] == j["gt_c2w"]
+        np.testing.assert_allclose(t["gt_c2w"], ts.dataset[frame]["c2w"][:3, :4].reshape(-1),
+                                   atol=5e-7)
+        np.testing.assert_allclose(t["c2w"], ts.estimate_c2w[frame][:3, :4].reshape(-1),
+                                   atol=5e-7)
+        assert t["c2w"] == j["c2w"]
+    for name, tag in (("output_front.txt", "FRONT"), ("output_back_fine.txt", "BACK")):
+        tl, jl = _lines(tmp_path / "t", name), _lines(tmp_path / "j", name)
+        assert len(tl) == len(jl) == (3 if tag == "FRONT" else 2)
+        assert [l.split(":")[0] for l in tl] == [l.split(":")[0] for l in jl]
+        assert all(f" {tag}: rgb " in l and " psnr " in l for l in tl)
 
 
 def test_warm_up_fires_past_frame_50(tmp_path):

@@ -3,7 +3,9 @@ fresh interpreter, import dnsjax_torch, run one hash-encode forward and
 backward, one mapping iteration, one Adam-tracked frame, one decoder
 warm-up step, a checkpoint resume, one mesh extraction and one full-frame
 render on the CPU, import what eval_ate, eval_2d and cull_mesh use (the
-port's own numpy metrics, cull and PLY code), then check sys.modules."""
+port's own numpy metrics, cull and PLY code), run the dense-grid encoder,
+the mesh metrics with the native raycaster, the ATE plot and the A/B gate's
+``build_variant_cfg``, then check sys.modules. Runtime budget: ~40 s on one core."""
 
 import os
 import subprocess
@@ -82,6 +84,20 @@ from dnsjax_torch.eval.semantic import semantic_metrics
 from dnsjax_torch.eval.lpips import lpips
 from dnsjax_torch.mesh.export import read_ply, write_ply
 from dnsjax_torch.viz.panels import residual_panel
+
+import dnsjax_torch.cli.eval_3d, dnsjax_torch.cli.eval_semantic
+from dnsjax_torch.eval.ab_quality import VARIANTS, build_variant_cfg
+from dnsjax_torch.eval.mesh_metrics import depth_l1_virtual_views, mesh_metrics
+from dnsjax_torch.mesh.raycast import MeshRaycaster
+from dnsjax_torch.ops.encodings import get_encoder
+from dnsjax_torch.viz.ate_plot import write_ate_plot
+enc, dim, p = get_encoder("dense", base_resolution=4, desired_resolution=8, log2_hashmap_size=10)
+assert enc(p, torch.rand(16, 3)).shape == (16, dim)
+v, f = mesh["vertices"], mesh["faces"]
+assert np.isfinite(mesh_metrics(v, f, v, f, n_samples=2000)["accuracy_cm"])
+assert depth_l1_virtual_views(v, f, v, f, n_views=2, H=12, W=16)["n_valid_views"] >= 0
+write_ate_plot(os.path.join(sys.argv[1], "ate.png"), slam.estimate_c2w[:3], slam.gt_c2w[:3], 0.1)
+assert build_variant_cfg("parity", VARIANTS["parity"], 40, True)["model"]["grid"]["n_levels"] == 16
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules

@@ -1,11 +1,15 @@
 """The port's own copies of dnsjax's jax-free modules against their
 originals, on the same numpy inputs: config loading, the procedural
 datasets, the EXR codec, the ATE / render / semantic metrics, mesh culling,
-PLY files and marching tetrahedra. Every comparison is exact: the copies
-run the same numpy code, so they must give the same bits."""
+PLY files, marching tetrahedra, the mesh metrics and the native raycaster.
+Every comparison is exact: the copies run the same numpy code (and build
+the same C++ sources), so they must give the same bits. Runtime budget:
+~15 s on one core."""
 
 import glob
+import importlib
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -20,17 +24,22 @@ from dnsjax.eval import semantic as j_sem
 from dnsjax.mesh import export as j_export
 from dnsjax.mesh import marching as j_march
 from dnsjax.mesh import native as j_native
+from dnsjax.mesh import raycast as j_raycast
 from dnsjax_torch import config as t_config
 from dnsjax_torch.cli import cull_mesh as t_cull
 from dnsjax_torch.data import exr as t_exr
 from dnsjax_torch.data import get_dataset as t_get_dataset
 from dnsjax_torch.eval import ate as t_ate
+from dnsjax_torch.eval import mesh_metrics as t_mm
 from dnsjax_torch.eval import render_metrics as t_rm
 from dnsjax_torch.eval import semantic as t_sem
 from dnsjax_torch.mesh import export as t_export
 from dnsjax_torch.mesh import marching as t_march
 from dnsjax_torch.mesh import native as t_native
+from dnsjax_torch.mesh import raycast as t_raycast
 
+# dnsjax.eval re-exports the function mesh_metrics under the module's name
+j_mm = importlib.import_module("dnsjax.eval.mesh_metrics")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, ROOT)
                  for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"),
@@ -208,3 +217,73 @@ def test_marching_tetrahedra_matches(path, monkeypatch):
     got, ref = t_march.marching_tetrahedra(*args), j_march.marching_tetrahedra(*args)
     assert ref[1].shape[0] > 50
     _equal(got, ref)
+
+
+@pytest.fixture
+def jax_raycaster(tmp_path, monkeypatch):
+    """dnsjax's raycaster built from a private copy of native/raycast.cpp:
+    dnsjax builds its library in place beside the source, where another
+    test process may be writing it at the same moment."""
+    shutil.copy(os.path.join(ROOT, "native", "raycast.cpp"), tmp_path)
+    monkeypatch.setattr(j_raycast, "_src_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(j_raycast, "_LIB", None)
+    monkeypatch.setattr(j_raycast, "_TRIED", False)
+    assert j_raycast.load() is not None
+
+
+def _two_meshes():
+    a = _sphere_mesh()
+    b = (a[0] * np.array([1.05, 0.97, 1.0], np.float32) + 0.02, a[1])
+    return a, b
+
+
+@pytest.mark.parametrize("n,seed", [(5000, 0), (20000, 3)])
+def test_sample_surface_matches(n, seed):
+    verts, faces = _sphere_mesh()
+    _equal(t_mm.sample_surface(verts, faces, n, seed), j_mm.sample_surface(verts, faces, n, seed))
+
+
+@pytest.mark.parametrize("thresh", [0.01, 0.05])
+def test_mesh_metrics_match(thresh):
+    (rv, rf), (gv, gf) = _two_meshes()
+    got = t_mm.mesh_metrics(rv, rf, gv, gf, n_samples=20000, thresh=thresh)
+    _equal(got, j_mm.mesh_metrics(rv, rf, gv, gf, n_samples=20000, thresh=thresh))
+    assert 0 < got["completion_ratio_pct"] < 100
+
+
+def test_raycaster_trace_matches(jax_raycaster):
+    """Both build native/raycast.cpp (the port's into dnsjax_torch/_build/)
+    and trace the same rays to the same bits: hits and misses."""
+    verts, faces = _sphere_mesh()
+    rng = np.random.default_rng(13)
+    o = rng.uniform(-0.3, 0.3, (4000, 3)).astype(np.float32)
+    d = rng.normal(size=(4000, 3)).astype(np.float32)
+    o[:500] += 5.0  # outside, looking anywhere: many miss
+    got = t_raycast.MeshRaycaster(verts, faces).trace(o, d)
+    want = j_raycast.MeshRaycaster(verts, faces).trace(o, d)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).sum() > 3000 and (got == 0).sum() > 0
+    assert t_raycast._SO.startswith(os.path.join(ROOT, "dnsjax_torch", "_build"))
+
+
+def test_depth_l1_virtual_views_matches(jax_raycaster):
+    (rv, rf), (gv, gf) = _two_meshes()
+    args = (rv, rf, gv, gf)
+    got = t_mm.depth_l1_virtual_views(*args, n_views=4, H=24, W=32, seed=5)
+    _equal(got, j_mm.depth_l1_virtual_views(*args, n_views=4, H=24, W=32, seed=5))
+    assert got["n_valid_views"] > 0
+
+
+def test_raycaster_without_library_raises(monkeypatch):
+    """No silent fallback: with the library unavailable the raycaster, and
+    the virtual-view depth L1 through it, raise as dnsjax's do."""
+    for mod in (t_raycast, j_raycast):
+        monkeypatch.setattr(mod, "_LIB", None)
+        monkeypatch.setattr(mod, "_TRIED", True)
+    verts, faces = _sphere_mesh()
+    for fn in (t_raycast.MeshRaycaster, j_raycast.MeshRaycaster):
+        with pytest.raises(RuntimeError, match="native raycaster unavailable"):
+            fn(verts, faces)
+    with pytest.raises(RuntimeError):
+        t_mm.depth_l1_virtual_views(verts, faces, verts, faces, n_views=1)
