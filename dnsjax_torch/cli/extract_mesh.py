@@ -24,8 +24,12 @@ def main(argv=None):
     m = load_map(args)
     kf = keyframes_from_checkpoint(m["ckpt"], m["ds"], m["device"])
     mesher = Mesher(m["cfg"], m["cam"], m["bound"], m["spec"], m["dtype"])
-    mesh = mesher.extract(m["params"], m["enc"], kf, class_palette(m["ds"].n_class))
-    write_mesh(m["out"], m["ckpt"]["meta"]["idx"], mesh, element=False)
+    idx = m["ckpt"]["meta"]["idx"]
+    # the trajectory, for meshing.get_mask_use_all_frames (the driver's hook
+    # passes its poses too)
+    mesh = mesher.extract(m["params"], m["enc"], kf, class_palette(m["ds"].n_class),
+                          all_poses=m["ckpt"]["estimate_c2w"][: idx + 1])
+    write_mesh(m["out"], idx, mesh, element=False)
     return mesher, mesh
 
 

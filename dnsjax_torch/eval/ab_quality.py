@@ -319,13 +319,18 @@ BASE_SCHEDULE = dict(
     tracking=dict(n_iters=50, n_pixels=500),
 )
 
-# The JAX package's 3-seed ranges (min, max) of the two variants the port's
-# gate runs, copied from AB_QUALITY.md's seed-spread table: parity@kf is
-# AB_QUALITY.md:82, ns16-m50-map10-lm8@kf AB_QUALITY.md:90. Quality numbers
-# of the JAX package's runs, not times.
+# The JAX package's 3-seed ranges (min, max) of the variants the port's gate
+# runs, copied from AB_QUALITY.md's seed-spread table: parity@kf is
+# AB_QUALITY.md:82, lm-track@kf :83, ns16-m50-map10@kf :85,
+# ns16-m50-map10-lm8@kf :90. Quality numbers of the JAX package's runs, not
+# times.
 JAX_RANGES = {
     "parity@kf": dict(ate_rmse_m=(0.0144, 0.0191), psnr_db=(31.3360, 34.1502),
                       depth_l1_cm=(1.0610, 1.5597), miou=(0.9666, 0.9997)),
+    "lm-track@kf": dict(ate_rmse_m=(0.0156, 0.0354), psnr_db=(31.0003, 32.8793),
+                        depth_l1_cm=(1.1189, 1.3415), miou=(0.9650, 0.9999)),
+    "ns16-m50-map10@kf": dict(ate_rmse_m=(0.0101, 0.0181), psnr_db=(30.6275, 31.7506),
+                              depth_l1_cm=(0.9560, 1.1418), miou=(0.9574, 0.9647)),
     "ns16-m50-map10-lm8@kf": dict(ate_rmse_m=(0.0113, 0.0165), psnr_db=(31.3675, 31.5325),
                                   depth_l1_cm=(0.9666, 1.1609), miou=(0.9575, 0.9653)),
 }

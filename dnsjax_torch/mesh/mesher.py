@@ -22,6 +22,15 @@ Host code (lattice, Morton order, refinement flags, marching, cleaning,
 vertex attributes) is numpy, as in dnsjax; marching (``mesh/marching.py``,
 native library first) and the PLY writer (``mesh/export.py``) are the
 port's own copies of dnsjax's.
+
+Options, as dnsjax's: ``meshing.depth_test`` drops a view where the point
+lies more than 0.5 m behind the keyframe's depth, and with
+``use_est_depth`` the keyframes' missing depth is first rendered from the
+coarse field (``estimated_depths``, through the encode kernel);
+``show_forecast`` gives never-observed points the coarse field's occupancy
+and crops the mesh to the scaled hull of the keyframes' depth clouds
+(``frames_hull``); ``get_mask_use_all_frames`` also keeps a vertex that any
+pose of the trajectory frames (``_frustum_any``).
 """
 
 from __future__ import annotations
@@ -34,31 +43,25 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from dnsjax_torch.geometry.rays import project_points, world_to_camera
+from dnsjax_torch.geometry.rays import project_points, ray_box_far, rays_from_uv, world_to_camera
 from dnsjax_torch.geometry.se3 import invert_se3
 from dnsjax_torch.mesh.export import write_ply
 from dnsjax_torch.mesh.marching import marching_tetrahedra
-from dnsjax_torch.models.decoder import DecoderSpec, fine_apply, merge_apply, pos_encode
+from dnsjax_torch.models.decoder import (
+    DecoderSpec,
+    coarse_apply,
+    fine_apply,
+    merge_apply,
+    pos_encode,
+)
 from dnsjax_torch.models.encoder import encode_images
 from dnsjax_torch.models.features import _row_gather, bilinear_sample, nearest_sample
 from dnsjax_torch.ops.mlp import mlp_apply
+from dnsjax_torch.render.composite import composite_rays
+from dnsjax_torch.render.sampling import sample_along_rays
 
 _ROADMAP = "ROADMAP.md, Queue 1: remaining items"
-
-
-def check_supported(cfg: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for every meshing option outside the port."""
-    m = cfg.get("meshing", {}) or {}
-    tpu = cfg.get("tpu", {}) or {}
-    unsupported = [
-        (bool(m.get("depth_test", False)) and bool(m.get("use_est_depth", False)),
-         "meshing.depth_test with meshing.use_est_depth", 2),
-        (bool(m.get("show_forecast", False)), "meshing.show_forecast", 2),
-        (bool(m.get("get_mask_use_all_frames", False)), "meshing.get_mask_use_all_frames", 2),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}, {item})")
+EST_DEPTH_SAMPLES = 32  # stratified samples a ray of estimated_depths (dnsjax's)
 
 
 def class_palette(n_class: int) -> np.ndarray:
@@ -78,7 +81,6 @@ class _Views(NamedTuple):
 class Mesher:
     def __init__(self, cfg: Dict[str, Any], cam: Dict[str, Any], bound: np.ndarray,
                  spec: DecoderSpec, compute_dtype=torch.bfloat16, device_mesh=None):
-        check_supported(cfg)
         if device_mesh is not None:
             raise NotImplementedError(
                 f"a sharded mesh query (device_mesh) is not ported yet ({_ROADMAP}, 4)")
@@ -96,6 +98,10 @@ class Mesher:
         self.label = bool(m.get("label", True))
         self.element = bool(m.get("element", False))
         self.depth_test = bool(m.get("depth_test", False))
+        self.use_est_depth = bool(m.get("use_est_depth", False))
+        self.show_forecast = bool(m.get("show_forecast", False))
+        self.bound_scale = float(m.get("clean_mesh_bound_scale", 1.02))
+        self.mask_all_frames = bool(m.get("get_mask_use_all_frames", False))
         # feature taps as in training (tpu.feature_taps): 1 nearest, 4 bilinear
         self.feature_taps = int(tpu.get("feature_taps", 4))
         # fused view rows: [feats | depth | label] in one half-res bf16 map
@@ -220,7 +226,11 @@ class Mesher:
         in_bound = ((p01 >= 0) & (p01 <= 1)).all(-1)
         pe, grid = pos_encode(params, torch.clamp(p01, 0, 1), spec)
         lat = fine_apply(params, label, pe[:, None, :], grid[:, None, :], cdt)[:, 0]
-        occ = torch.where(in_bound, lat[:, 0], torch.full_like(lat[:, 0], -100.0))
+        occ = lat[:, 0]
+        if self.show_forecast:
+            # never-observed points take the class-agnostic coarse field
+            occ = torch.where(label_seen, occ, coarse_apply(params, pe, grid, cdt)[:, 0])
+        occ = torch.where(in_bound, occ, torch.full_like(occ, -100.0))
         color = torch.sigmoid(mlp_apply(params["color"], torch.cat([pe, lat[:, 1:], code], -1),
                                         cdt))
         out_label = torch.where(in_bound & label_seen, label, torch.full_like(label, -1))
@@ -237,7 +247,84 @@ class Mesher:
         spacing = [(hi[k] - lo[k]) / (r - 1) for k in range(3)]
         return axes, lo, spacing
 
-    def _encode_views(self, enc_params, kf, kf_feats):
+    def _all_rays(self, c2w: torch.Tensor):
+        """(H, W, 3) ray origins and directions of every pixel under ``c2w``."""
+        H, W = int(self.cam["H"]), int(self.cam["W"])
+        j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=c2w.device),
+                              torch.arange(W, dtype=torch.float32, device=c2w.device),
+                              indexing="ij")
+        return rays_from_uv(i, j, c2w, self.cam["fx"], self.cam["fy"], self.cam["cx"],
+                            self.cam["cy"])
+
+    def estimated_depths(self, params, keyframes, chunk: int = 8192) -> torch.Tensor:
+        """(capacity, H, W) keyframe depths with each valid slot's zero-depth
+        pixels filled by depth rendered from the coarse field (32 stratified
+        samples a ray, no random draws), in chunks of ``chunk`` rays;
+        dnsjax's ``estimated_depths`` (active under depth_test +
+        use_est_depth)."""
+        spec, cdt = self.spec, self.compute_dtype
+        kf = keyframes
+        bound = torch.as_tensor(self.bound, dtype=torch.float32, device=kf.depths.device)
+        none = torch.empty(0, device=bound.device)
+        out = []
+        for k in range(kf.count):
+            o, d = self._all_rays(kf.est_c2w[k])
+            o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+            df = kf.depths[k].reshape(-1)
+            far = ray_box_far(o, d, bound) + 0.01
+            z = sample_along_rays(df, EST_DEPTH_SAMPLES, 0, far, none, none)
+            est = []
+            for a in range(0, df.shape[0], chunk):
+                zc = z[a:a + chunk]
+                pts = o[a:a + chunk, None, :] + d[a:a + chunk, None, :] * zc[..., None]
+                p01 = (pts.reshape(-1, 3) - bound[:, 0]) / (bound[:, 1] - bound[:, 0])
+                pe, grid = pos_encode(params, torch.clamp(p01, 0, 1), spec)
+                occ = coarse_apply(params, pe, grid, cdt)[:, 0].reshape(zc.shape)
+                est.append(composite_rays(torch.zeros(occ.shape + (3,), device=occ.device),
+                                          occ, zc)[0])
+            out.append(torch.where(df > 0, df, torch.cat(est)).reshape(kf.depths[k].shape))
+        return torch.cat([torch.stack(out), kf.depths[kf.count:]]) if out else kf.depths
+
+    def frames_hull(self, keyframes):
+        """Delaunay triangulation of up to 20,000 points (``default_rng(0)``)
+        of the keyframes' depth clouds (every 8th pixel each way), scaled by
+        ``clean_mesh_bound_scale`` about their centroid: dnsjax's stand-in for
+        the reference's TSDF-volume hull, which crops forecast geometry."""
+        from scipy.spatial import Delaunay
+
+        pts = []
+        for k in range(keyframes.count):
+            o, d = self._all_rays(keyframes.est_c2w[k])
+            o, d = o.cpu().numpy(), d.cpu().numpy()
+            dep = keyframes.depths[k].cpu().numpy()[::8, ::8]
+            p = o[::8, ::8] + d[::8, ::8] * dep[..., None]
+            pts.append(p.reshape(-1, 3)[dep.reshape(-1) > 0])
+        cloud = np.concatenate(pts, 0)
+        centroid = cloud.mean(0)
+        cloud = (cloud - centroid) * self.bound_scale + centroid
+        return Delaunay(cloud[np.random.default_rng(0).choice(
+            cloud.shape[0], size=min(20000, cloud.shape[0]), replace=False)])
+
+    def _frustum_any(self, verts: np.ndarray, poses: np.ndarray, device) -> np.ndarray:
+        """True for the vertices inside any pose's frustum (no depth test);
+        identity placeholders (untracked frames) and non-finite poses are
+        skipped, 64 poses a batch."""
+        cam = self.cam
+        seen = torch.zeros(verts.shape[0], dtype=torch.bool, device=device)
+        v = torch.as_tensor(np.asarray(verts, np.float32), device=device)
+        poses = np.asarray(poses)
+        is_identity = np.abs(poses - np.eye(4)).max(axis=(1, 2)) < 1e-8
+        poses = poses[~is_identity & np.isfinite(poses).all((1, 2))]
+        for s0 in range(0, poses.shape[0], 64):
+            w2c = invert_se3(torch.as_tensor(poses[s0:s0 + 64], dtype=torch.float32,
+                                             device=device))
+            u, vv, d = project_points(world_to_camera(v, w2c), cam["fx"], cam["fy"],
+                                      cam["cx"], cam["cy"])
+            ok = (u > 0) & (u < cam["W"] - 1) & (vv > 0) & (vv < cam["H"] - 1) & (d > 0)
+            seen |= ok.any(0)
+        return seen.cpu().numpy()
+
+    def _encode_views(self, params, enc_params, kf, kf_feats):
         K = kf.count
         if kf_feats is not None:
             feats = kf_feats[:K]
@@ -246,7 +333,10 @@ class Mesher:
                                              self.compute_dtype)
                                for a in range(0, max(K, 1), 8)])[:K]
         feats = feats.to(self.compute_dtype)
-        depths, labels = kf.depths[:K], kf.labels[:K]
+        depths = kf.depths
+        if self.depth_test and self.use_est_depth:
+            depths = self.estimated_depths(params, kf)
+        depths, labels = depths[:K], kf.labels[:K]
         if self.fuse_rows:
             feats = self.fuse_view_maps(feats, depths, labels)
         valid = torch.ones((K,), dtype=torch.bool, device=feats.device)
@@ -259,8 +349,8 @@ class Mesher:
 
         ``kf_feats``: optional encoder maps (>= count, Hf, Wf, C) the caller
         already holds (keyframe images never change after insertion).
-        ``all_poses`` is accepted for dnsjax's signature; it is read only by
-        ``get_mask_use_all_frames``, which raises here."""
+        ``all_poses``: the trajectory's poses (N, 4, 4), read by
+        ``get_mask_use_all_frames``."""
         self.last_timings = {}
         t_mark = [time.perf_counter()]
 
@@ -274,7 +364,7 @@ class Mesher:
 
         kf = keyframes
         with torch.no_grad():
-            views = self._encode_views(enc_params, kf, kf_feats)
+            views = self._encode_views(params, enc_params, kf, kf_feats)
         dev = views.c2w.device
         mark("encode_views")
 
@@ -357,7 +447,11 @@ class Mesher:
         if verts.shape[0] == 0:
             return {"vertices": verts, "faces": faces}
         if self.clean_mesh:
-            verts, faces = self._clean(verts, faces, seen.reshape(r, r, r), lo, spacing)
+            if self.show_forecast and kf.count > 0:
+                inside = self.frames_hull(kf).find_simplex(verts) >= 0
+                faces = faces[inside[faces].all(axis=1)]
+            verts, faces = self._clean(verts, faces, seen.reshape(r, r, r), lo, spacing,
+                                       all_poses, dev)
         mark("clean")
 
         if interp:
@@ -473,12 +567,15 @@ class Mesher:
         self.last_timings["refined_share"] = where[0].size / float(r ** 3)
         return occ.reshape(-1), label.reshape(-1), col.reshape(-1, 3), seen.reshape(-1)
 
-    def _clean(self, verts, faces, seen_grid, lo, spacing):
-        """Drop faces with a vertex no keyframe observed, then small
-        components; compact the vertices."""
+    def _clean(self, verts, faces, seen_grid, lo, spacing, all_poses=None, device="cpu"):
+        """Drop faces with a vertex no keyframe observed (or, under
+        ``get_mask_use_all_frames``, no pose of ``all_poses`` frames), then
+        small components; compact the vertices."""
         idx = np.round((verts - lo) / spacing).astype(np.int64)
         idx = np.clip(idx, 0, self.resolution - 1)
         vseen = seen_grid[idx[:, 0], idx[:, 1], idx[:, 2]] > 0
+        if self.mask_all_frames and all_poses is not None:
+            vseen = vseen | self._frustum_any(verts, all_poses, device)
         faces = faces[vseen[faces].all(axis=1)]
         if self.get_largest or self.small_thresh > 0:
             faces = self._remove_small_components(verts, faces)
@@ -510,6 +607,7 @@ class Mesher:
         semantic and per-class variants)."""
         mesh = self.extract(driver.params, driver.enc_params, driver.keyframes,
                             getattr(driver, "class_colors", None),
+                            all_poses=driver.estimate_c2w[: idx + 1],
                             kf_feats=driver.collect_kf_feats())
         if mesh["faces"].shape[0] == 0:
             print(f"mesh_{idx}: empty")

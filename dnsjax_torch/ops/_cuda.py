@@ -122,3 +122,16 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# the wrappers' launch counts are module globals that two threads (the
+# tracker's and an asynchronous keystep's) may add to at once
+count_lock = threading.Lock()
+
+
+def on_side_stream(device) -> bool:
+    """Is the current stream another than the device's default stream (the
+    asynchronous keystep's)?"""
+    import torch
+
+    return torch.cuda.current_stream(device) != torch.cuda.default_stream(device)

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 LAUNCHES = 0  # kernel launches by encode_forward (the plain twin does not count)
+SIDE_LAUNCHES = 0  # of those, the launches on another stream than the default
 
 
 def _residual_shapes(N: int, spec):
@@ -54,7 +55,7 @@ def encode_forward(pts: torch.Tensor, table: torch.Tensor, spec, want_res: bool)
     CPU tensors take the plain twin. CUDA tensors launch
     ``dnsjax_hash_encode_fwd`` (csrc/hashgrid.cu) and never fall back.
     """
-    global LAUNCHES
+    global LAUNCHES, SIDE_LAUNCHES
     if pts.device.type == "cpu" and table.device.type == "cpu":
         return encode_forward_plain(pts, table, spec, want_res)
     from dnsjax_torch.ops import _cuda
@@ -98,5 +99,7 @@ def encode_forward(pts: torch.Tensor, table: torch.Tensor, spec, want_res: bool)
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "dnsjax_hash_encode_fwd")
-    LAUNCHES += 1
+    with _cuda.count_lock:
+        LAUNCHES += 1
+        SIDE_LAUNCHES += _cuda.on_side_stream(dev)
     return out, feats, idx, w, aux

@@ -44,6 +44,7 @@ import torch
 from dnsjax_torch.ops.hashgrid import _level_draw, _table_grad_contribs
 
 LAUNCHES = 0  # kernel launches by table_grad and scatter_add (twins do not count)
+SIDE_LAUNCHES = 0  # of those, the launches on another stream than the default
 SORTED_LAUNCHES = 0  # kernel launches by sorted_segment_sum
 _U32 = 0xFFFFFFFF
 # dnsjax_table_grad's modes: corners (one sampled, all, values as given) and
@@ -150,7 +151,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding, level=False) -> None:
     """One launch of ``dnsjax_table_grad`` adding into the zeroed ``out``."""
-    global LAUNCHES
+    global LAUNCHES, SIDE_LAUNCHES
     from dnsjax_torch.ops import _cuda
 
     if F not in _FEATURES:
@@ -165,7 +166,9 @@ def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding, level=False) -> No
         _cuda.stream_ptr(out.device),
     )
     _cuda.check(err, "dnsjax_table_grad")
-    LAUNCHES += 1
+    with _cuda.count_lock:
+        LAUNCHES += 1
+        SIDE_LAUNCHES += _cuda.on_side_stream(out.device)
 
 
 def table_grad(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

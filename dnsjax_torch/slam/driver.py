@@ -1,13 +1,15 @@
-"""SLAM orchestration, single device, strict sync: PyTorch port of the
-strict-sync path of dnsjax/slam/driver.py.
+"""SLAM orchestration on one device: PyTorch port of the single-device
+paths of dnsjax/slam/driver.py.
 
 One host loop interleaves tracking and mapping: frames 0-1 take their GT
 poses, frame 0 bootstraps the map, every later frame is tracked (Adam or
-LM, with a retry from the raw previous pose on a loss outlier), and every
-``optimize_every_n_frames``-th frame (and the last) runs one keystep of two
-outer mapping calls (overlap-selected, then randomly selected keyframe
-windows). Windows are padded to ``n_joint_optimize_frames`` slots so the
-ray budget splits as in dnsjax. Past frame 50, a mapping call whose window
+LM, with a retry from the raw previous pose on a loss outlier), and the
+``sync_method`` schedule (``_should_map``, dnsjax's: strict every
+``optimize_every_n_frames``-th frame, loose about twice as often, free after
+every frame; the last frame always) runs keysteps of two outer mapping
+calls (overlap-selected, then randomly selected keyframe windows).
+Windows are padded to ``n_joint_optimize_frames`` slots so the ray budget
+splits as in dnsjax. Past frame 50, a mapping call whose window
 brings a new class decoder that the current frame shows first warms the
 new decoders up on that frame (``mapper.make_decoder_init_fn``). Keyframes
 are inserted every ``choose_keyframe_every`` frames; the run ends with
@@ -20,15 +22,28 @@ event to ``metrics.jsonl`` (a track event carries the estimated and GT
 poses); under ``verbose`` the FRONT and BACK lines also go to
 ``output_front.txt`` and ``output_back_fine.txt``, as in dnsjax.
 
+``tpu.async_map`` (default on unless ``sync_method: strict``) defers a
+keystep's results (pose write-back, losses, logs, and the tracker's copy of
+the map) to the next keystep boundary, as dnsjax's ``_finish_map`` does:
+the tracker renders against the map as of the last finish. Here the keystep
+runs in a worker thread on its own CUDA stream with a generator of its own,
+seeded from the run's seed and the frame, and reads only the keyframe slots
+that stood at dispatch; the main thread tracks on the default stream. The
+strict schedule without ``async_map`` runs inline, on one generator, and
+takes no copy of the map.
+
 Config values the port does not implement raise ``NotImplementedError``
 naming their ROADMAP.md item, rather than silently running something else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -37,7 +52,6 @@ import torch
 from dnsjax_torch.data import get_dataset
 from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, invert_se3, tensor_from_camera, tensor_from_camera_np
 from dnsjax_torch.mesh.mesher import Mesher, class_palette
-from dnsjax_torch.mesh.mesher import check_supported as check_mesher_supported
 from dnsjax_torch.models.checkpoint import load_checkpoint, restore_params, save_checkpoint
 from dnsjax_torch.models.decoder import DecoderSpec, decoder_param_count, init_decoder_params
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
@@ -66,15 +80,20 @@ def load_bound(cfg: Dict[str, Any]) -> np.ndarray:
     return bound.astype(np.float32)
 
 
-def check_supported(cfg: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for every config value outside the slice."""
+def map_device_index(index: int, n_devices: int) -> Optional[int]:
+    """dnsjax's ``tpu.map_device`` rule: an index below 1, or at or above the
+    number of devices, means the tracker's device (None)."""
+    return index if 0 < index < n_devices else None
+
+
+def check_supported(cfg: Dict[str, Any], n_devices: int = 1) -> None:
+    """Raise NotImplementedError for every config value outside the port
+    (``n_devices``: the devices ``tpu.map_device`` may name)."""
     tpu = cfg.get("tpu", {}) or {}
     mp = cfg["mapping"]
-    sync = str(cfg.get("sync_method", "strict"))
+    map_dev = map_device_index(int(tpu.get("map_device", 0)), n_devices)
     unsupported = [
-        (sync != "strict", f"sync_method: {sync}", 3),
-        (bool(tpu.get("async_map", sync != "strict")), "tpu.async_map", 3),
-        (int(tpu.get("map_device", 0)) > 0, "tpu.map_device > 0", 3),
+        (map_dev is not None, f"tpu.map_device: {map_dev} (a second device)", 4),
         (int(tpu.get("data_parallel", 1)) > 1, "tpu.data_parallel > 1", 4),
         (int(tpu.get("map_dp", 1)) > 1, "tpu.map_dp > 1", 4),
         (bool(tpu.get("mesh_async", False)), "tpu.mesh_async", 4),
@@ -82,8 +101,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}, {item})")
-    if int(mp.get("mesh_every", 0)) > 0 and "meshing" in cfg:
-        check_mesher_supported(cfg)
     if int(mp["n_refer_frames"]) != 2:
         raise ValueError(
             f"mapping.n_refer_frames={mp['n_refer_frames']} unsupported; "
@@ -96,10 +113,10 @@ class DNSSLAM:
 
     def __init__(self, cfg: Dict[str, Any], output_dir: Optional[str] = None,
                  device: str = "cuda"):
-        check_supported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda requested but torch.cuda.is_available() is false")
+        check_supported(cfg, torch.cuda.device_count() if self.device.type == "cuda" else 1)
         # float32 matmuls and convolutions stay full float32 (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -128,10 +145,11 @@ class DNSSLAM:
         self.fix_refer_bug = bool(tpu.get("fix_refer_frame_bug", True))
         feature_taps = int(tpu.get("feature_taps", 4))
 
-        seed = int(cfg.get("seed", 0))
+        seed = self.seed = int(cfg.get("seed", 0))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         init_gen = torch.Generator().manual_seed(seed)
         self.params = init_decoder_params(self.spec, init_gen, self.device)
+        self._track_params = self.params  # the tracker's map (a copy under async_map)
         self.enc_params = init_encoder_params(str(tpu.get("encoder_init", "gabor")), seed,
                                               self.device)
 
@@ -182,6 +200,12 @@ class DNSSLAM:
         self.keyframes = KeyframeStore(int(mp.get("max_keyframes", 96)), ds.H, ds.W,
                                        self.n_class, self.device)
         self.kf_eviction = str(mp.get("kf_eviction", "redundant"))
+        self.sync_method = str(cfg.get("sync_method", "strict"))
+        self.async_map = bool(tpu.get("async_map", self.sync_method != "strict"))
+        self._pending_map: Optional[Dict[str, Any]] = None
+        self._worker: Optional[ThreadPoolExecutor] = None
+        self._map_stream = None  # the keystep's CUDA stream under async_map
+        self._deferred = threading.local()  # the worker's log events, until its finish
 
         self.estimate_c2w = np.tile(np.eye(4, dtype=np.float32), (self.n_img, 1, 1))
         self.gt_c2w = np.tile(np.eye(4, dtype=np.float32), (self.n_img, 1, 1))
@@ -214,6 +238,22 @@ class DNSSLAM:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _snapshot(self):
+        """The tracker's map after a finish: the map itself, or under
+        ``async_map`` a copy, since the next keystep updates the map in place
+        while the tracker reads."""
+        if not self.async_map:
+            return self.params
+
+        def clone(t):
+            if isinstance(t, torch.Tensor):
+                return t.detach().clone()
+            if isinstance(t, dict):
+                return {k: clone(v) for k, v in t.items()}
+            return [clone(v) for v in t]
+
+        return clone(self.params)
 
     def _encode(self, images: torch.Tensor) -> torch.Tensor:
         return encode_images(self.enc_params, images, self.compute_dtype)
@@ -265,8 +305,8 @@ class DNSSLAM:
         }
 
     # ------------------------------------------------------------------
-    def _select_targets(self, mode: str, cur, cur_c2w: torch.Tensor) -> List[int]:
-        K = self.keyframes.count
+    def _select_targets(self, mode: str, cur, cur_c2w: torch.Tensor, gen: torch.Generator,
+                        K: int) -> List[int]:
         num = min(self.n_joint - 2, K)
         if K < 2:
             picked: List[int] = []
@@ -276,7 +316,7 @@ class DNSSLAM:
             cap = self.keyframes.capacity
             scores = self.overlap_fn(
                 cur["depth"], cur_c2w, self.keyframes.est_c2w,
-                torch.arange(cap, device=self.device) < max(K - 1, 0), self.gen,
+                torch.arange(cap, device=self.device) < max(K - 1, 0), gen,
             ).cpu().numpy()[: max(K - 1, 0)]
             order = np.argsort(-scores)
             cand = [int(i) for i in order if scores[i] > 0.05]
@@ -295,15 +335,17 @@ class DNSSLAM:
             return [max(K - 3, 0), max(K - 2, 0)]
         return [max(target_id - 1, 0), target_id + 1]
 
-    def _build_window(self, targets: List[int], cur, cur_c2w: torch.Tensor):
+    def _build_window(self, targets: List[int], cur, cur_c2w: torch.Tensor,
+                      K: Optional[int] = None):
         """One mapping window padded to ``n_joint`` slots, layout
         [oldest, <pads>, rest..., cur]. Padding slots duplicate real frames
         round-robin from the newest down and render with the real slot's
         live pose (``pose_src``), so a short window gives each real frame a
-        larger share of the fixed ray budget. Returns (window, quads0, Ts0,
-        slots, valid)."""
+        larger share of the fixed ray budget. ``K``: the keyframes the
+        window may name (default: the store's count). Returns (window,
+        quads0, Ts0, slots, valid)."""
         kf, dev = self.keyframes, self.device
-        K = kf.count
+        K = kf.count if K is None else K
         real_slots = targets + [-1]
         n_real = len(real_slots)
         n_pad = max(self.n_joint - n_real, 0)
@@ -383,13 +425,18 @@ class DNSSLAM:
         return self._map_fns[k]
 
     def map_once(self, idx: int, cur, n_iters: int, mode: str, is_first: bool,
-                 cur_c2w: Optional[torch.Tensor] = None):
-        """One mapping call; returns (aux, refined current pose (4,4) on device)."""
+                 cur_c2w: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None,
+                 n_kf: Optional[int] = None):
+        """One mapping call; returns (aux, refined current pose (4,4) on device).
+        ``gen``: its generator (default the run's); ``n_kf``: the keyframe
+        slots it may read (default the store's count)."""
+        gen = self.gen if gen is None else gen
+        n_kf = self.keyframes.count if n_kf is None else n_kf
         if cur_c2w is None:
             cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
         self.is_ba = idx >= self.start_optimize_idx
-        targets = [] if is_first else self._select_targets(mode, cur, cur_c2w)
-        window, quads0, Ts0, slots, valid = self._build_window(targets, cur, cur_c2w)
+        targets = [] if is_first else self._select_targets(mode, cur, cur_c2w, gen, n_kf)
+        window, quads0, Ts0, slots, valid = self._build_window(targets, cur, cur_c2w, n_kf)
 
         offs = window["offsets"].cpu().numpy()
         present = np.nonzero((offs[:, 1:] - offs[:, :-1]).sum(0) > 0)[0].tolist()
@@ -398,12 +445,12 @@ class DNSSLAM:
             cur_classes = set(np.unique(cur["host"]["label"]).tolist())
             warm = [c for c in new_decoders if c in cur_classes]
             if warm:
-                self.decoder_init(cur, cur_c2w, warm)
+                self.decoder_init(cur, cur_c2w, warm, gen)
         if new_decoders:
             window["lt_gate_iter"] = n_iters // 2
 
         quads, Ts, aux = self._map_fn(len(slots), n_iters)(
-            self.params, quads0, Ts0, window, self.gen
+            self.params, quads0, Ts0, window, gen
         )
         c2w_new = camera_from_tensor(torch.cat([quads, Ts], -1))
         if self.is_ba:
@@ -414,53 +461,166 @@ class DNSSLAM:
                 self.keyframes.update_pose(sid, c2w_new[i])
         return aux, c2w_new[-1]
 
-    def decoder_init(self, cur, c2w: torch.Tensor, classes: List[int]) -> torch.Tensor:
+    def decoder_init(self, cur, c2w: torch.Tensor, classes: List[int],
+                     gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Warm the decoders of ``classes`` up on the current frame (its
-        class-sorted pixels and encoder features, pose ``c2w``); updates the
-        map in place and returns the iterations' losses."""
+        class-sorted pixels and encoder features, pose ``c2w``; draws from
+        ``gen``, default the run's); updates the map in place and returns the
+        iterations' losses."""
         cur_feats, (srt, off) = self._cur_state(cur)
         mask = torch.zeros(self.n_class, dtype=torch.bool, device=self.device)
         mask[classes] = True
         frame = {"color": cur["color"], "depth": cur["depth"], "label": cur["label"],
                  "c2w": c2w, "bound": self.bound, "sorted_idx": srt, "offsets": off,
                  "feats": cur_feats[None]}
-        losses = self.decoder_init_fn(self.params, frame, mask, self.gen)
+        losses = self.decoder_init_fn(self.params, frame, mask, self.gen if gen is None else gen)
         self.decoder_inits.append({"frame": cur["index"], "classes": list(classes)})
         self._log_metric(event="decoder_init", frame=cur["index"], classes=list(classes),
                          iters=int(losses.shape[0]))
         return losses
 
     def _keystep(self, idx: int, cur) -> None:
-        """One keystep: two outer mapping calls (overlap, then global
-        windows), then the pose write-back and the log line."""
+        """Dispatch one keystep (two outer mapping calls: overlap, then
+        global windows) and record it as pending; without ``async_map`` it
+        runs here and finishes at once."""
         t0 = time.perf_counter()
-        aux = cur_c2w = None
+        if self.async_map:
+            self._dispatch_keystep(idx, cur, t0)
+            return
+        aux, cur_c2w = self._outer_calls(idx, cur)
+        self._pending_map = dict(idx=idx, aux=aux, cur_c2w=cur_c2w, is_ba=self.is_ba,
+                                 t_dispatch=time.perf_counter() - t0)
+        self._finish_map()
+
+    def _outer_calls(self, idx: int, cur, cur_c2w=None, gen=None, n_kf=None):
+        """The keystep's two mapping calls; (aux, refined current pose)."""
+        aux = None
         for o in range(2):
             mode = "overlap" if o % 2 == 0 else "global"
-            aux, cur_c2w = self.map_once(idx, cur, self.n_iters // 2, mode, False, cur_c2w)
-        t_dispatch = time.perf_counter() - t0  # host time until the enqueue returns
-        if self.is_ba:
+            aux, cur_c2w = self.map_once(idx, cur, self.n_iters // 2, mode, False, cur_c2w,
+                                         gen=gen, n_kf=n_kf)
+        return aux, cur_c2w
+
+    @staticmethod
+    def _losses(aux):
+        """The logged loss terms (p, d, l, lt), read back in one copy."""
+        return torch.stack([aux["p_loss"], aux["d_loss"], aux["l_loss"],
+                            aux["lt_loss"]]).cpu().numpy()
+
+    def _dispatch_keystep(self, idx: int, cur, t0: float) -> None:
+        """Hand the keystep to the worker thread: its generator, seeded here
+        from the run's seed and the frame, the current pose and the
+        keyframe count as they stand, and an event after the default
+        stream's work so far, which the keystep's stream waits for."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(np.random.SeedSequence([self.seed, idx]).generate_state(1)[0]))
+        cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
+        ready = None
+        if self.device.type == "cuda":
+            if self._map_stream is None:
+                self._map_stream = torch.cuda.Stream(self.device)
+            ready = torch.cuda.Event()
+            ready.record()
+        if self._worker is None:
+            self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="keystep")
+        future = self._worker.submit(self._keystep_worker, idx, cur, cur_c2w,
+                                     self.keyframes.count, gen, ready)
+        # cur and cur_c2w stay referenced until the finish, so the caching
+        # allocator cannot hand their memory to the default stream meanwhile
+        self._pending_map = dict(idx=idx, future=future, cur=cur, cur_c2w0=cur_c2w,
+                                 is_ba=idx >= self.start_optimize_idx,
+                                 t_dispatch=time.perf_counter() - t0)
+
+    def _keystep_worker(self, idx: int, cur, cur_c2w, n_kf: int, gen, ready):
+        """The keystep in the worker thread, on the keystep's stream: both
+        outer calls, then the losses read back on that stream. Returns
+        (losses (4,), refined current pose, the log events it made)."""
+        self._deferred.events = []
+        ctx = contextlib.nullcontext()
+        if ready is not None:
+            ctx = torch.cuda.stream(self._map_stream)
+        try:
+            with ctx:
+                if ready is not None:
+                    self._map_stream.wait_event(ready)
+                aux, cur_c2w = self._outer_calls(idx, cur, cur_c2w, gen, n_kf)
+                losses = self._losses(aux)
+            return losses, cur_c2w, self._deferred.events
+        finally:
+            self._deferred.events = None
+
+    def _finish_map(self) -> None:
+        """Consume the pending keystep (dnsjax's ``_finish_map``): wait for
+        it, write the BA pose back (and into the keyframe store when the
+        frame was keyframed meanwhile), give the tracker the map as it now
+        stands, then log. ``seconds`` = dispatch + the time blocked here."""
+        p = self._pending_map
+        if p is None:
+            return
+        self._pending_map = None
+        t0 = time.perf_counter()
+        idx = p["idx"]
+        if "future" in p:
+            losses, cur_c2w, events = p["future"].result()
+            if self._map_stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(self._map_stream)
+        else:
+            cur_c2w, events = p["cur_c2w"], []
+            losses = self._losses(p["aux"])
+            self._sync()
+        if p["is_ba"]:
             self.estimate_c2w[idx] = cur_c2w.cpu().numpy()
             if idx in self.keyframes.frame_ids:
                 self.keyframes.update_pose(self.keyframes.frame_ids.index(idx), cur_c2w)
-        self._finish_map(idx, aux, t0, t_dispatch)
-
-    def _finish_map(self, idx: int, aux, t0: float, t_dispatch: float) -> None:
-        pk = torch.stack([aux["p_loss"], aux["d_loss"], aux["l_loss"], aux["lt_loss"]])
-        p_loss, d_loss, l_loss, lt_loss = (float(v) for v in pk.cpu().numpy())
-        self._sync()
-        self.map_times.append(time.perf_counter() - t0)
+        self._track_params = self._snapshot()
+        t_block = time.perf_counter() - t0
+        t_dispatch = p["t_dispatch"]
+        self.map_times.append(t_dispatch + t_block)
+        for ev in events:
+            self._log_metric(**ev)
+        p_loss, d_loss, l_loss, lt_loss = (float(v) for v in losses)
         psnr = -10.0 * np.log10(max(p_loss, 1e-12))
         self.last_map_aux = dict(frame=idx, p_loss=p_loss, d_loss=d_loss,
                                  l_loss=l_loss, lt_loss=lt_loss, psnr=psnr)
         if self.verbose:
-            t_block = self.map_times[-1] - t_dispatch
             self._log_line("output_back_fine.txt",
                            f"Frame {idx} BACK: rgb {p_loss:.4f} psnr {psnr:.2f} d {d_loss:.4f} "
                            f"l {l_loss:.4f} lt {lt_loss:.4f} {t_dispatch:.1f}+{t_block:.1f}s")
         self._log_metric(event="map", frame=idx, p_loss=p_loss, d_loss=d_loss,
                          l_loss=l_loss, lt_loss=lt_loss, seconds=self.map_times[-1],
                          dispatch_seconds=t_dispatch, n_keyframes=self.keyframes.count)
+
+    def _release_worker(self) -> None:
+        """Shut the keystep's worker thread down (after its last keystep)."""
+        if self._worker is not None:
+            self._worker.shutdown(wait=True)
+            self._worker = None
+
+    def keystep_window(self, idx: int, cur) -> Dict[str, float]:
+        """One keystep dispatched at frame ``idx``, the same frame tracked
+        while it runs, then its finish, and the worker released: the span
+        over which an asynchronous keystep and the tracker share the card.
+        Returns the host seconds of the dispatch and of the tracked frame."""
+        t0 = time.perf_counter()
+        self._keystep(idx, cur)
+        t_dispatch = time.perf_counter() - t0
+        self.track_frame(idx, cur)
+        t_track = time.perf_counter() - t0 - t_dispatch
+        self._finish_map()
+        self._release_worker()
+        return dict(dispatch_s=t_dispatch, track_s=t_track)
+
+    def _should_map(self, idx: int, last_mapped: int, n: int) -> bool:
+        """dnsjax's interleave policy: strict maps every optimize_every-th
+        frame, loose about twice as often, free after every frame; the last
+        frame always maps."""
+        if idx == n - 1:
+            return True
+        if self.sync_method == "strict":
+            return idx % self.optimize_every == 0 and idx > last_mapped
+        if self.sync_method == "loose":
+            return idx >= last_mapped + max(self.optimize_every // 2, 1)
+        return True  # free
 
     # ------------------------------------------------------------------
     def frame_vis(self, idx: int, cur) -> None:
@@ -502,7 +662,7 @@ class DNSSLAM:
         t7 = tensor_from_camera_np(c2w0).astype(np.float32)
         t7 = torch.as_tensor(t7, device=self.device)
         packed, n_run = self.tracker.track(
-            self.params, feats, self._refer_w2c, cur["color"], cur["depth"],
+            self._track_params, feats, self._refer_w2c, cur["color"], cur["depth"],
             cur["label"], t7[:4], t7[4:], self.bound, self.gen,
         )
         return packed.cpu().numpy().astype(np.float64), n_run
@@ -558,6 +718,12 @@ class DNSSLAM:
             f.write(line + "\n")
 
     def _log_metric(self, **kw) -> None:
+        """Append one event to ``metrics.jsonl``; an event of the keystep's
+        worker waits for its finish, so the file's order is the schedule's."""
+        deferred = getattr(self._deferred, "events", None)
+        if deferred is not None:
+            deferred.append(kw)
+            return
         kw["t"] = time.time()
         with open(os.path.join(self.out_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(kw) + "\n")
@@ -569,6 +735,7 @@ class DNSSLAM:
                 print(f"WARNING: keyframe store full ({kf.capacity}); frame {idx} "
                       "not keyframed — raise mapping.max_keyframes")
                 return
+            self._finish_map()  # a running keystep reads the slots eviction moves
             self._evict_keyframe()
         if kf.count < kf.capacity:
             kf.add(cur["host"], self.estimate_c2w[idx])
@@ -582,6 +749,7 @@ class DNSSLAM:
         the uninterrupted one."""
         ckpt = load_checkpoint(path)
         self.params = restore_params(self.params, ckpt)
+        self._track_params = self._snapshot()
         self.enc_params = restore_params(self.enc_params, ckpt, "enc")
         self.estimate_c2w[:] = ckpt["estimate_c2w"][: self.n_img]
         self.gt_c2w[:] = ckpt["gt_c2w"][: self.n_img]
@@ -611,6 +779,7 @@ class DNSSLAM:
         aux0, _ = self.map_once(0, f0, self.n_iters_first, "overlap", is_first=True)
         float(aux0["p_loss"])
         self._sync()
+        self._track_params = self._snapshot()
         self.map_times.append(time.perf_counter() - t0)
         self.first_frame_optimized = True
         self._pre_color = f0["color"]
@@ -619,9 +788,11 @@ class DNSSLAM:
         self._log_metric(event="init_map", seconds=self.map_times[-1])
 
     def run(self, end_frame: Optional[int] = None, start_frame: int = 0):
-        """The strict-sync schedule from frame ``start_frame`` (0 bootstraps
-        the map; a resumed run seeds the tracker's reference from frame
-        start - 1); returns (estimated, GT) poses (n, 4, 4)."""
+        """The ``sync_method`` schedule from frame ``start_frame`` (0
+        bootstraps the map; a resumed run seeds the tracker's reference from
+        frame start - 1); returns (estimated, GT) poses (n, 4, 4). A pending
+        keystep finishes before the next keystep, before the panel, the
+        mesh, a checkpoint and an eviction, and at the end, as in dnsjax."""
         n = self.n_img if end_frame is None else min(end_frame, self.n_img)
         if start_frame == 0:
             self._bootstrap(n)
@@ -630,32 +801,45 @@ class DNSSLAM:
             start = start_frame
             self._pre_color = self._frame_to_device(self.dataset[start - 1])["color"]
 
-        for idx in range(start, n):
-            cur = self._frame_to_device(self.dataset[idx])
-            self.gt_c2w[idx] = cur["host"]["c2w"]
-            if idx <= 1 or self.use_gt_camera:
-                self.estimate_c2w[idx] = cur["host"]["c2w"]
-                if self._refer_color is None:
-                    self._refer_w2c = torch.as_tensor(
-                        np.linalg.inv(self.estimate_c2w[idx]).astype(np.float32),
-                        device=self.device,
-                    )
-                    self._refer_color = cur["color"]
-            else:
-                self.track_frame(idx, cur)
+        last_mapped = start - 1
+        try:
+            for idx in range(start, n):
+                cur = self._frame_to_device(self.dataset[idx])
+                self.gt_c2w[idx] = cur["host"]["c2w"]
+                if idx <= 1 or self.use_gt_camera:
+                    self.estimate_c2w[idx] = cur["host"]["c2w"]
+                    if self._refer_color is None:
+                        self._refer_w2c = torch.as_tensor(
+                            np.linalg.inv(self.estimate_c2w[idx]).astype(np.float32),
+                            device=self.device,
+                        )
+                        self._refer_color = cur["color"]
+                else:
+                    self.track_frame(idx, cur)
 
-            if idx == n - 1 or idx % self.optimize_every == 0:
-                self._keystep(idx, cur)
-                if self.vis_every > 0 and (idx % self.vis_every == 0 or idx <= 1):
-                    self.frame_vis(idx, cur)
-                if (idx % self.keyframe_every == 0 or idx == n - 2) \
-                        and idx not in self.keyframes.frame_ids:
-                    self._add_keyframe(idx, cur)
-                if self.mesher is not None and idx % self.mesh_every == 0:
-                    self.save_mesh(idx)
-                if self.checkpoint_every > 0 and idx % self.checkpoint_every == 0 and idx > 1:
-                    self.save_checkpoint(f"model_{idx}.npz", idx)
-            self._pre_color = cur["color"]
+                if self._should_map(idx, last_mapped, n):
+                    self._finish_map()
+                    self._keystep(idx, cur)
+                    last_mapped = idx
+                    if idx == n - 1:
+                        self._finish_map()
+                    if self.vis_every > 0 and (idx % self.vis_every == 0 or idx <= 1):
+                        self._finish_map()
+                        self.frame_vis(idx, cur)
+                    if (idx % self.keyframe_every == 0 or idx == n - 2) \
+                            and idx not in self.keyframes.frame_ids:
+                        self._add_keyframe(idx, cur)
+                    if self.mesher is not None and idx % self.mesh_every == 0:
+                        self._finish_map()
+                        self.save_mesh(idx)
+                    if self.checkpoint_every > 0 and idx % self.checkpoint_every == 0 \
+                            and idx > 1:
+                        self._finish_map()
+                        self.save_checkpoint(f"model_{idx}.npz", idx)
+                self._pre_color = cur["color"]
+            self._finish_map()
+        finally:
+            self._release_worker()
 
         self.save_checkpoint("model.npz", n - 1)
         if self.verbose:

@@ -37,15 +37,9 @@ def _cfg(*overrides):
 
 
 @pytest.mark.parametrize("override", [
-    "sync_method=loose",
-    "tpu.async_map=true",
-    "tpu.map_device=1",
     "tpu.data_parallel=2",
     "tpu.map_dp=2",
     "tpu.mesh_async=true",
-    "mapping.mesh_every=10,meshing.show_forecast=true",
-    "mapping.mesh_every=10,meshing.get_mask_use_all_frames=true",
-    "mapping.mesh_every=10,meshing.depth_test=true,meshing.use_est_depth=true",
 ])
 def test_unsupported_config_raises(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -60,11 +54,20 @@ def test_unsupported_config_raises(override):
     ("model.grid.grad_levels=1", lambda s: s.spec.grid.grad_levels == 1),
     ("tpu.encoder_init=random", lambda s: s.enc_params["w"].shape == (7, 7, 3, 64)
      and abs(float(s.enc_params["w"].std()) - (2 / 147) ** 0.5) < 0.01),
+    ("sync_method=loose", lambda s: s.sync_method == "loose" and s.async_map),
+    ("tpu.async_map=true", lambda s: s.sync_method == "strict" and s.async_map),
+    # one device: map_device names no second one, so the keystep stays on it
+    ("tpu.map_device=1", lambda s: s.device.type == "cpu"),
+    ("mapping.mesh_every=10,meshing.show_forecast=true", lambda s: s.mesher.show_forecast),
+    ("mapping.mesh_every=10,meshing.get_mask_use_all_frames=true",
+     lambda s: s.mesher.mask_all_frames),
+    ("mapping.mesh_every=10,meshing.depth_test=true,meshing.use_est_depth=true",
+     lambda s: s.mesher.depth_test and s.mesher.use_est_depth),
 ])
 def test_ported_config_is_supported(override, check, tmp_path):
     """Values the guard refused before they were ported pass it and reach the
-    driver's tracker, mapper, grid spec and encoder."""
-    cfg = _cfg(override)
+    driver's tracker, mapper, schedule, grid spec, encoder and mesher."""
+    cfg = _cfg(*override.split(","))
     cfg["verbose"] = False
     tdrv.check_supported(cfg)
     assert check(tdrv.DNSSLAM(cfg, output_dir=str(tmp_path), device="cpu"))

@@ -5,7 +5,10 @@ warm-up step, a checkpoint resume, one mesh extraction and one full-frame
 render on the CPU, import what eval_ate, eval_2d and cull_mesh use (the
 port's own numpy metrics, cull and PLY code), run the dense-grid encoder,
 the mesh metrics with the native raycaster, the ATE plot and the A/B gate's
-``build_variant_cfg``, then check sys.modules. Runtime budget: ~40 s on one core."""
+``build_variant_cfg``, a short run with asynchronous keysteps (``sync_method:
+loose``) and the visualizer's replay of it, import the strict/async pairs
+script, then check sys.modules for jax, dnsjax and matplotlib. Runtime
+budget: ~45 s on one core."""
 
 import os
 import subprocess
@@ -98,11 +101,28 @@ assert np.isfinite(mesh_metrics(v, f, v, f, n_samples=2000)["accuracy_cm"])
 assert depth_l1_virtual_views(v, f, v, f, n_views=2, H=12, W=16)["n_valid_views"] >= 0
 write_ate_plot(os.path.join(sys.argv[1], "ate.png"), slam.estimate_c2w[:3], slam.gt_c2w[:3], 0.1)
 assert build_variant_cfg("parity", VARIANTS["parity"], 40, True)["model"]["grid"]["n_levels"] == 16
+
+from dnsjax_torch.cli import visualizer
+from dnsjax_torch.eval import async_pairs  # noqa: F401
+acfg = load_run_config("configs/synthetic/synthetic.yaml", 0, [
+    "mapping.vis_every=0", "sync_method=loose", "mapping.n_iters=2", "mapping.n_iters_first=2",
+    "tracking.lm_iters=1", "mapping.n_pixels=120", "tracking.n_pixels=40",
+    "training.n_samples_ray=6", "training.n_surface_ray=2"])
+acfg["verbose"] = False
+aout = os.path.join(sys.argv[1], "async")
+arun = DNSSLAM(acfg, output_dir=aout, device="cpu")
+assert arun.async_map
+est, _ = arun.run(end_frame=5)
+assert np.isfinite(est).all() and len(arun.map_times) >= 3
+assert len(visualizer.main(["configs/synthetic/synthetic.yaml", "--output", aout,
+                            "--every", "2"])) == 2
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
                   if m == "dnsjax" or m.startswith(("dnsjax.", "_dnsjax_mesh_")))
 assert not ref_mods, ref_mods
+mpl_mods = sorted(m for m in sys.modules if m == "matplotlib" or m.startswith("matplotlib."))
+assert not mpl_mods, mpl_mods
 print("NOJAX_OK")
 """
 

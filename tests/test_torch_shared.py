@@ -1,7 +1,8 @@
 """The port's own copies of dnsjax's jax-free modules against their
 originals, on the same numpy inputs: config loading, the procedural
 datasets, the EXR codec, the ATE / render / semantic metrics, mesh culling,
-PLY files, marching tetrahedra, the mesh metrics and the native raycaster.
+PLY files, marching tetrahedra, the mesh metrics, the native raycaster and
+the visualizer's mesh loading and camera glyph.
 Every comparison is exact: the copies run the same numpy code (and build
 the same C++ sources), so they must give the same bits. Runtime budget:
 ~15 s on one core."""
@@ -16,6 +17,7 @@ import pytest
 
 from dnsjax import config as j_config
 from dnsjax.cli import cull_mesh as j_cull
+from dnsjax.cli import visualizer as j_vis
 from dnsjax.data import exr as j_exr
 from dnsjax.data import get_dataset as j_get_dataset
 from dnsjax.eval import ate as j_ate
@@ -27,6 +29,7 @@ from dnsjax.mesh import native as j_native
 from dnsjax.mesh import raycast as j_raycast
 from dnsjax_torch import config as t_config
 from dnsjax_torch.cli import cull_mesh as t_cull
+from dnsjax_torch.cli import visualizer as t_vis
 from dnsjax_torch.data import exr as t_exr
 from dnsjax_torch.data import get_dataset as t_get_dataset
 from dnsjax_torch.eval import ate as t_ate
@@ -200,6 +203,39 @@ def test_ply_round_trip_matches(tmp_path, attrs):
     _equal(got, j_export.read_ply(str(tmp_path / "j.ply")))
     np.testing.assert_array_equal(got[0], verts)
     np.testing.assert_array_equal(got[1], faces)
+
+
+@pytest.mark.parametrize("case", ["faces", "decimated", "colors", "points"])
+def test_visualizer_load_mesh_matches(tmp_path, case):
+    """``_load_mesh``: the shaded faces (decimated past ``max_faces`` by
+    ``default_rng(0)``, vertex colours or the flat grey), or the point cloud
+    of a PLY without faces."""
+    verts, faces = _sphere_mesh()
+    rng = np.random.default_rng(12)
+    colors = rng.uniform(0, 1, (verts.shape[0], 3)) if case in ("colors", "points") else None
+    if case == "points":
+        faces = faces[:0]
+    path = str(tmp_path / "m.ply")
+    t_export.write_ply(path, verts, faces, colors=colors)
+    kw = dict(max_faces=faces.shape[0] // 3) if case == "decimated" else {}
+    _equal(t_vis._load_mesh(path, **kw), j_vis._load_mesh(path, **kw))
+
+
+def test_visualizer_camera_segments_match():
+    rng = np.random.default_rng(13)
+    for k in range(5):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        w, x, y, z = q
+        c2w = np.eye(4)
+        c2w[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                       [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                       [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+        c2w[:3, 3] = rng.normal(size=3)
+        pose = c2w if k % 2 else c2w[:3].astype(np.float32)
+        _equal(t_vis._camera_segments(pose, 0.05 * (k + 1)),
+               j_vis._camera_segments(pose, 0.05 * (k + 1)))
+    assert t_vis._CAM_POINTS == j_vis._CAM_POINTS and t_vis._CAM_LINES == j_vis._CAM_LINES
 
 
 @pytest.mark.parametrize("path", ["native", "numpy"])
