@@ -65,6 +65,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      runs' ``metrics.jsonl``); then a torch.profiler window from one
      keystep's dispatch to its finish with a tracked frame between: the
      device's busy share and the time the two streams' kernels overlap;
+  3f. parallel: ``tpu.data_parallel`` on 2 ranks that share the card over
+     gloo (NCCL refuses two ranks on one card; the card's compute mode must
+     be ``Default``), each against the same computation in this process:
+     ``hash_encode_tp`` at the textured grid (float32 table gradient) and
+     the mapping shape (line ``parallel_tp``); one 20-iteration
+     ``make_map_fn_dp`` keystep on phase 3's map at frame 20, both ranks on
+     one generator's draws, and on one NCCL rank (``parallel_dp``: each
+     within a stated tolerance of this process's keystep, the ranks' maps
+     bit for bit alike); the mesher's query chunk and 128^3 extraction and
+     a render of frame 20 over the ranks (``mesh_dp``, ``render_dp``); then
+     CONFIG through the driver with ``tpu.data_parallel: 2``, frames 0-10
+     (``slam_dp``: ATE and PSNR bounds, the ranks' trajectories and maps
+     alike, both kernels launched on each rank, files only under the first
+     rank's output, the loop's wall beside phase 3's to frame 10);
   4. outputs: ``dnsjax_torch.cli.extract_mesh --resolution 256`` and
      ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
      encode kernel's launches in each; sanity bounds on the mesh and the
@@ -368,6 +382,9 @@ def check_kernels(results, plain_shapes):
         # (name, spec kwargs, N, timed, table-gradient variants: spec changes)
         ("textured-map", TEXTURED, 1992 * 47, True, []),
         ("textured-track", TEXTURED, 500 * 47, True, []),
+        # the adopted bundle's 16 + 15 samples a ray (ROADMAP Queue 3, fault 7)
+        ("textured-map-ns16", TEXTURED, 1992 * 31, False, []),
+        ("textured-track-ns16", TEXTURED, 500 * 31, False, []),
         ("parity-map", PARITY, 1992 * 47, True, []),
         ("parity-track", PARITY, 500 * 47, True, []),
         ("synthetic-tet", dict(n_levels=8, n_features=2, log2_hashmap_size=13,
@@ -1074,6 +1091,376 @@ def run_visualizer(every: int = 5):
         raise AssertionError(f"the visualizer wrote no readable replay: {line}")
 
 
+OUT_DP = os.path.join(ROOT, "output", "chip_smoke_dp")
+DP_RANKS = 2
+DP_FRAMES = 11  # frames 0-10 of the textured run: keysteps at 0, 5 and 10
+DP_ITERS = 20   # one keystep call of the parallel_dp line
+DP_FRAME = 20   # the frame of phase 3's model_20.npz that the window, query and render use
+# The DP keystep against the single process on one generator's draws. Both
+# add float32 atomics in another order (the table gradient), and Adam's
+# first steps move a parameter by ~lr * sign(g), so a parameter whose
+# gradient is at rounding level moves apart by up to 2 lr a step; the bound
+# is the one the CPU holds the port's keystep to dnsjax's at bf16
+# (tests/test_torch_keystep_schedule.py): losses rtol 2e-2, each tensor's
+# median difference 1e-2 lr and largest 2 * iterations * lr.
+DP_TOL = dict(loss=2e-2, median=1e-2, max=2.0 * DP_ITERS)
+DP_DEVICE = "cuda:0"  # every rank's device: the ranks share the card
+
+
+def _compute_mode():
+    """The card's compute mode; two ranks on one card need ``Default``."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if mode.strip().lower() != "default":
+        raise AssertionError(f"the card's compute mode is {mode!r}: {DP_RANKS} ranks cannot "
+                             "share it (exclusive-process or prohibited)")
+    return mode
+
+
+def _dp_driver(config, device, data_parallel, out):
+    """A driver of ``config`` on ``device`` with ``tpu.data_parallel``, quiet,
+    without the output hooks."""
+    from dnsjax_torch.cli.run import load_run_config
+    from dnsjax_torch.slam.driver import DNSSLAM
+
+    cfg = load_run_config(config, 0, [f"tpu.data_parallel={data_parallel}",
+                                      "mapping.vis_every=0", "mapping.mesh_every=0"])
+    cfg["verbose"] = False
+    return DNSSLAM(cfg, output_dir=out, device=str(device))
+
+
+def _dp_inputs(slam, run):
+    """Phase 3's map at frame 20 (``model_20.npz`` in ``run``) in ``slam``: the window
+    of frame 20 over its newest keyframes, its poses, and the keystep's
+    draws from one generator seeded alike everywhere."""
+    import torch
+
+    from dnsjax_torch.slam.mapper import _build_loss_fn
+
+    slam.resume(os.path.join(run, f"model_{DP_FRAME}.npz"))
+    cur = slam._frame_to_device(slam.dataset[DP_FRAME])
+    K = slam.keyframes.count
+    slam.is_ba = True
+    window, q0, t0, slots, _ = slam._build_window(
+        list(range(max(1, K - slam.n_joint + 2), K)), cur,
+        torch.as_tensor(slam.estimate_c2w[DP_FRAME], device=slam.device))
+    loss_fn = _build_loss_fn(slam.spec, slam.map_cfg, len(slots), slam.compute_dtype)
+    gen = torch.Generator(device=slam.device).manual_seed(DP_FRAME)
+    draws = [loss_fn.draw(gen, window, it) for it in range(DP_ITERS)]
+    return cur, window, q0, t0, draws
+
+
+def _dp_keystep(slam, mesh, inputs):
+    """One DP_ITERS keystep call on ``inputs`` (``make_map_fn_dp`` under
+    ``mesh``, else ``make_map_fn``), after one untimed call that warms a
+    fresh process up: the map's leaves and the losses, on the host, and the
+    timed call's wall."""
+    import torch
+
+    from dnsjax_torch.models.decoder import param_leaves
+    from dnsjax_torch.parallel import make_map_fn_dp
+    from dnsjax_torch.slam.mapper import make_map_fn
+
+    _, window, q0, t0, draws = inputs
+    T = q0.shape[0]
+    if mesh is None:
+        fn = make_map_fn(slam.spec, slam.map_cfg, T, DP_ITERS, slam.compute_dtype)
+    else:
+        fn = make_map_fn_dp(slam.spec, slam.map_cfg, T, DP_ITERS, mesh, slam.compute_dtype)
+    for _ in range(2):
+        params = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                      {n: [x.clone() for x in v[n]] for n in ("w", "b")})
+                  for k, v in slam.params.items()}
+        slam._sync()
+        t0_ = time.perf_counter()
+        quads, Ts, aux = fn(params, q0, t0, window, None, draws=draws)
+        slam._sync()
+        wall = time.perf_counter() - t0_
+    return dict(leaves=[p.cpu() for p in param_leaves(params)], quads=quads.cpu(), Ts=Ts.cpu(),
+                losses=aux["losses"].cpu(), wall_s=wall)
+
+
+def _dp_query_points(mesher, n, device):
+    """``n`` points uniform in the mesher's padded bound, drawn alike
+    everywhere."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    lo = torch.as_tensor(mesher.mc_bound[:, 0] - 0.05, dtype=torch.float32, device=device)
+    hi = torch.as_tensor(mesher.mc_bound[:, 1] + 0.05, dtype=torch.float32, device=device)
+    return lo + torch.rand((n, 3), generator=gen, device=device) * (hi - lo)
+
+
+def _dp_outputs(slam, mesh, cur, resolution=128):
+    """The mesher over ``mesh`` (None: one process) on phase 3's model at
+    frame 20: one query chunk and the whole extraction at ``resolution``;
+    then frame 20 rendered by the full-frame renderer (the two newest
+    keyframes and the frame as views, z draws seeded alike)."""
+    import torch
+
+    from dnsjax_torch.geometry.se3 import invert_se3
+    from dnsjax_torch.mesh.mesher import Mesher
+    from dnsjax_torch.render.full import make_full_renderer
+
+    slam.cfg["meshing"]["resolution"] = resolution
+    ds, dev = slam.dataset, slam.device
+    cam = dict(H=ds.H, W=ds.W, fx=ds.fx, fy=ds.fy, cx=ds.cx, cy=ds.cy)
+    m = Mesher(slam.cfg, cam, slam.bound_np, slam.spec, slam.compute_dtype, device_mesh=mesh)
+    with torch.no_grad():
+        views = m._encode_views(slam.params, slam.enc_params, slam.keyframes, None)
+        q = m._query_packed(slam.params, _dp_query_points(m, m.points_batch, dev), views,
+                            slam.bound).cpu()
+    t0 = time.perf_counter()
+    out = m.extract(slam.params, slam.enc_params, slam.keyframes)
+    mesh_s = time.perf_counter() - t0
+    kf = slam.keyframes
+    refs = [kf.count - 2, kf.count - 1]
+    c2w = torch.as_tensor(slam.estimate_c2w[DP_FRAME], device=dev)
+    refer = torch.stack([kf.est_c2w[refs[0]], kf.est_c2w[refs[1]], c2w])
+    feats = torch.stack([slam._kf_feat(refs[0]), slam._kf_feat(refs[1]),
+                         slam._cur_state(cur)[0]])
+    render = make_full_renderer(slam.spec, cam, slam.map_cfg.n_samples, slam.map_cfg.n_surface,
+                                compute_dtype=slam.compute_dtype, mesh=mesh)
+    t0 = time.perf_counter()
+    color, depth, _ = render(slam.params, c2w, cur["depth"], cur["label"], invert_se3(refer),
+                             feats, slam.bound, torch.Generator(device=dev).manual_seed(3))
+    slam._sync()
+    render_s = time.perf_counter() - t0
+    return dict(query=q, points_batch=m.points_batch, vertices=out["vertices"],
+                faces=out["faces"], mesh_s=mesh_s, color=color.cpu(), depth=depth.cpu(),
+                render_s=render_s)
+
+
+def _dp_rank(rank, device, config, run):
+    """One of DP_RANKS gloo ranks on the one card: the row-sharded encode,
+    one DP keystep call, the mesher's query and extraction and a render
+    over the ranks on phase 3's map, then CONFIG through the driver with
+    ``tpu.data_parallel``, frames 0-10, with this rank's kernel launches."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dnsjax_torch.models.decoder import param_leaves
+    from dnsjax_torch.parallel import dp_tp_mesh, gather_table, hash_encode_tp, ray_mesh
+    from dnsjax_torch.parallel import shard_table
+
+    out = {}
+    table, pts, g, spec = _tp_inputs(device)
+    tp = dp_tp_mesh(1, dist.get_world_size(), device=device).tp
+    local = shard_table(table, tp).requires_grad_(True)
+    p = pts.clone().requires_grad_(True)
+    enc = hash_encode_tp(local, p, spec, tp)
+    (enc * g).sum().backward()
+    out["tp"] = dict(out=enc.detach().cpu(), table_grad=gather_table(local.grad, tp).cpu(),
+                     pts_grad=p.grad.cpu())
+    del local, p, enc
+
+    mesh = ray_mesh(device=device)
+    slam = _dp_driver(config, device, DP_RANKS, os.path.join(OUT_DP, "setup"))
+    inputs = _dp_inputs(slam, run)
+    out["keystep"] = _dp_keystep(slam, mesh, inputs)
+    out["outputs"] = _dp_outputs(slam, mesh, inputs[0])
+    del slam, inputs
+
+    run_out = os.path.join(OUT_DP, "slam", f"rank{rank}")
+    slam = _dp_driver(config, device, DP_RANKS, run_out)
+    _reset_counts()
+    t0 = time.perf_counter()
+    est, _ = slam.run(end_frame=DP_FRAMES)
+    out["slam"] = dict(wall_s=time.perf_counter() - t0, launches=_counts(), est=est,
+                       psnr=slam.last_map_aux["psnr"], track_avg_s=float(np.mean(slam.track_times)),
+                       keystep_avg_s=float(np.mean(slam.map_times[1:])),
+                       init_map_s=slam.map_times[0], out=run_out,
+                       files=sorted(os.listdir(run_out)) if os.path.isdir(run_out) else [],
+                       map_sha256=hashlib.sha256(b"".join(
+                           p.cpu().numpy().tobytes() for p in param_leaves(slam.params))
+                       ).hexdigest())
+    return out
+
+
+def _nccl_rank(rank, device, config, run):
+    """One rank in an NCCL group of one: the DP keystep call."""
+    from dnsjax_torch.parallel import ray_mesh
+
+    slam = _dp_driver(config, device, 1, os.path.join(OUT_DP, "nccl"))
+    return _dp_keystep(slam, ray_mesh(device=device), _dp_inputs(slam, run))
+
+
+def _tp_inputs(device):
+    """The textured grid with a float32 table gradient (``scatter: xla``:
+    the row-sharded encode's backward is plain float32 in both packages), a
+    table, mapping-shaped points (1992 rays x 47 samples) and a cotangent,
+    drawn alike everywhere."""
+    import torch
+
+    from dnsjax_torch.ops.hashgrid import HashGridSpec
+
+    spec = HashGridSpec(**dict(TEXTURED, scatter="xla"))
+    gen = torch.Generator(device=device).manual_seed(11)
+    table = (torch.rand((spec.n_levels, spec.table_size, spec.n_features), generator=gen,
+                        device=device) * 2 - 1) * 0.1
+    pts = _ray_points(gen, 1992, 47)
+    g = torch.randn((pts.shape[0], spec.out_dim), generator=gen, device=device)
+    return table, pts, g, spec
+
+
+def _rel(a, b) -> float:
+    """Max abs difference over the reference's max abs."""
+    return _max_err(a, b) / max(float(b.abs().max()), 1e-30)
+
+
+def _leaves_close(got, want, lr):
+    """(median, max) over the leaves of |got - want| in units of ``lr``."""
+    d = [(a.double() - b.double()).abs().reshape(-1) for a, b in zip(got, want)]
+    return (max(float(x.median()) for x in d) / lr, max(float(x.max()) for x in d) / lr)
+
+
+def run_parallel():
+    """Phase 3f: ``tpu.data_parallel`` on DP_RANKS gloo ranks sharing the card
+    (NCCL refuses two ranks on one card) and one NCCL rank; each rank's
+    results against the same computation in this process. Lines
+    ``parallel_tp``, ``parallel_dp``, ``mesh_dp``, ``render_dp``,
+    ``slam_dp``. Returns each rank's launches of the driven run."""
+    import numpy as np
+    import torch
+
+    from dnsjax_torch.cli.eval_ate import ate_stats
+    from dnsjax_torch.ops.gather import encode_forward
+    from dnsjax_torch.ops.hashgrid import hash_encode
+    from dnsjax_torch.ops import scatter
+    from dnsjax_torch.parallel.launch import spawn
+
+    mode = _compute_mode()
+    if os.path.isdir(OUT_DP):
+        shutil.rmtree(OUT_DP)
+    t0 = time.perf_counter()
+    ranks = spawn(_dp_rank, DP_RANKS, "gloo", [DP_DEVICE] * DP_RANKS, args=(CONFIG, OUT),
+                  pg_timeout=300.0, join_timeout=600.0, scratch=os.path.join(OUT_DP, "ranks"))
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = spawn(_nccl_rank, 1, "nccl", [DP_DEVICE], args=(CONFIG, OUT), pg_timeout=300.0,
+                 join_timeout=300.0,
+                 scratch=os.path.join(OUT_DP, "nccl_rank"))[0]
+    nccl_s = time.perf_counter() - t0
+
+    # parallel_tp: the single-rank encode through hashgrid.cu and scatter.cu
+    table, pts, g, spec = _tp_inputs(DP_DEVICE)
+    t = table.clone().requires_grad_(True)
+    p = pts.clone().requires_grad_(True)
+    enc = hash_encode(t, p, spec)
+    (enc * g).sum().backward()
+    _, _, idx, w, _ = encode_forward(pts, table, spec, True)
+    # each row's float32 sums in another order: 1e-7 + 1e-5 of its sum of |g|
+    row_bound = 1e-7 + 1e-5 * scatter.table_grad(
+        spec, idx, w, g.abs().reshape(-1, spec.n_levels, spec.n_features))
+    tp_line = dict(ranks=DP_RANKS, points=int(pts.shape[0]), grid="textured, scatter: xla")
+    for r, res in enumerate(ranks):
+        tp = res["tp"]
+        tg = tp["table_grad"].to(t.device)
+        tp_line[f"rank{r}"] = dict(fwd_rel_err=_rel(tp["out"].to(t.device), enc.detach()),
+                                   table_grad_max_err=_max_err(tg, t.grad),
+                                   table_grad_rows_within_bound=bool(
+                                       ((tg - t.grad).abs() <= row_bound).all()),
+                                   pts_grad_rel_err=_rel(tp["pts_grad"].to(t.device), p.grad))
+    print("parallel_tp " + json.dumps(tp_line), flush=True)
+    for r in range(DP_RANKS):
+        e = tp_line[f"rank{r}"]
+        if not (e["fwd_rel_err"] <= 1e-5 and e["table_grad_rows_within_bound"]
+                and e["pts_grad_rel_err"] <= 1e-4):
+            raise AssertionError(f"hash_encode_tp disagrees with hash_encode: {tp_line}")
+    del t, p, enc, table, pts, g, idx, w, row_bound
+
+    # parallel_dp: the same keystep call in this process, twice
+    slam = _dp_driver(CONFIG, DP_DEVICE, 1, os.path.join(OUT_DP, "single"))
+    inputs = _dp_inputs(slam, OUT)
+    single = [_dp_keystep(slam, None, inputs) for _ in range(2)]
+    lr = slam.map_cfg.lr
+    ref = single[0]
+    dp_line = dict(iters=DP_ITERS, ranks=DP_RANKS, window=int(inputs[2].shape[0]),
+                   rays_per_rank=slam.map_cfg.n_pixels, single_wall_s=[s["wall_s"] for s in single],
+                   rank_wall_s=[r["keystep"]["wall_s"] for r in ranks], nccl_wall_s=nccl["wall_s"],
+                   spawn_s=ranks_s, nccl_spawn_s=nccl_s, tolerance=DP_TOL, compute_mode=mode)
+    cases = {"single_again": single[1], "nccl_1_rank": nccl}
+    cases.update({f"gloo_rank{r}": res["keystep"] for r, res in enumerate(ranks)})
+    for name, got in cases.items():
+        med, mx = _leaves_close(got["leaves"], ref["leaves"], lr)
+        dp_line[name] = dict(loss_rel_err=_rel(got["losses"], ref["losses"]), median_lr=med,
+                             max_lr=mx, quads_max_err=_max_err(got["quads"], ref["quads"]))
+    a, b = (r["keystep"] for r in ranks)
+    dp_line["ranks_bit_identical"] = all(torch.equal(x, y) for x, y in zip(
+        a["leaves"] + [a["quads"], a["Ts"]], b["leaves"] + [b["quads"], b["Ts"]]))
+    print("parallel_dp " + json.dumps(dp_line), flush=True)
+    for name in cases:
+        e = dp_line[name]
+        if not (e["loss_rel_err"] <= DP_TOL["loss"] and e["median_lr"] <= DP_TOL["median"]
+                and e["max_lr"] <= DP_TOL["max"]):
+            raise AssertionError(f"the DP keystep ({name}) disagrees with one process: {dp_line}")
+    if not dp_line["ranks_bit_identical"]:
+        raise AssertionError(f"the ranks' maps differ after a DP keystep: {dp_line}")
+
+    # mesh_dp / render_dp: the same outputs in this process
+    single_out = _dp_outputs(slam, None, inputs[0])
+    del slam, inputs, single
+    mesh_line, render_line = dict(resolution=128), dict(frame=DP_FRAME)
+    for r, res in enumerate(ranks):
+        o = res["outputs"]
+        q, qs = o["query"], single_out["query"]
+        mesh_line[f"rank{r}"] = dict(
+            points=int(q.shape[0]), occ_rel_err=_rel(q[:, 0], qs[:, 0]),
+            label_agree=float((q[:, 1] == qs[:, 1]).double().mean()),
+            color_max_err=_max_err(q[:, 2:5], qs[:, 2:5]),
+            vertices=int(o["vertices"].shape[0]), faces=int(o["faces"].shape[0]),
+            extract_s=o["mesh_s"], identical=bool(torch.equal(q, qs)))
+        render_line[f"rank{r}"] = dict(color_max_err=_max_err(o["color"], single_out["color"]),
+                                       depth_max_err=_max_err(o["depth"], single_out["depth"]),
+                                       render_s=o["render_s"],
+                                       identical=bool(torch.equal(o["color"], single_out["color"])
+                                                      and torch.equal(o["depth"],
+                                                                      single_out["depth"])))
+    mesh_line["single"] = dict(vertices=int(single_out["vertices"].shape[0]),
+                               faces=int(single_out["faces"].shape[0]),
+                               extract_s=single_out["mesh_s"])
+    render_line["single_render_s"] = single_out["render_s"]
+    print("mesh_dp " + json.dumps(mesh_line), flush=True)
+    print("render_dp " + json.dumps(render_line), flush=True)
+    nv = mesh_line["single"]["vertices"]
+    for r in range(DP_RANKS):
+        e, f = mesh_line[f"rank{r}"], render_line[f"rank{r}"]
+        # bf16 compute: one query row may round the other way in a GEMM of
+        # another height (a rank's half chunk)
+        if not (e["occ_rel_err"] <= 1e-2 and e["label_agree"] >= 0.999
+                and e["color_max_err"] <= 1e-2 and abs(e["vertices"] - nv) <= 0.01 * nv):
+            raise AssertionError(f"the DP mesher disagrees with one process: {mesh_line}")
+        if not (f["color_max_err"] <= 1e-3 and f["depth_max_err"] <= 1e-3):
+            raise AssertionError(f"the DP renderer disagrees with one process: {render_line}")
+
+    # slam_dp: CONFIG through the driver on the ranks, frames 0-10
+    runs = [res["slam"] for res in ranks]
+    ate = float(ate_stats(os.path.join(runs[0]["out"], "model.npz"))[
+        "absolute_translational_error.rmse"])
+    line = dict(frames=DP_FRAMES, ranks=DP_RANKS, backend="gloo", ate_rmse_m=ate,
+                last_keystep_psnr=runs[0]["psnr"],
+                trajectories_identical=all(np.array_equal(r["est"], runs[0]["est"]) for r in runs),
+                maps_identical=len({r["map_sha256"] for r in runs}) == 1,
+                launches=[r["launches"] for r in runs], files=[r["files"] for r in runs],
+                wall_s=[r["wall_s"] for r in runs], init_map_s=[r["init_map_s"] for r in runs],
+                track_avg_s=[r["track_avg_s"] for r in runs],
+                keystep_avg_s=[r["keystep_avg_s"] for r in runs],
+                loop_s=_loop_wall(runs[0]["out"], DP_FRAMES - 1),
+                single_loop_s=_loop_wall(OUT, DP_FRAMES - 1))
+    print("slam_dp " + json.dumps(line), flush=True)
+    if not (ate < 0.3 and line["last_keystep_psnr"] > 20.0):
+        raise AssertionError(f"slam_dp out of bounds: {line}")
+    if not (line["trajectories_identical"] and line["maps_identical"]):
+        raise AssertionError(f"the ranks' trajectories or maps differ: {line}")
+    if min(min(c["hash_encode_fwd"], c["scatter_add"]) for c in line["launches"]) <= 0:
+        raise AssertionError(f"a rank never launched a kernel of the path: {line}")
+    if not runs[0]["files"] or any(r["files"] for r in runs[1:]):
+        raise AssertionError(f"files outside the first rank's output, or none there: {line}")
+    return [{k: c[k] for k in ("hash_encode_fwd", "scatter_add")} for c in line["launches"]]
+
+
 def profile_slam(slam, n_iters: int = 20, name: str = "slam", idx=None):
     """torch.profiler over one mapping call of ``n_iters`` iterations and one
     tracked frame (frame ``idx``, default the last) of the finished run:
@@ -1210,6 +1597,12 @@ def main(argv=None):
             for k in results:
                 results[k]["launches_by_path"][path] = counts[k]
         print(f"phase async wall {time.perf_counter() - t0:.2f} s", flush=True)
+    if args.end_frame is None or args.end_frame > DP_FRAME:
+        t0 = time.perf_counter()
+        dp_counts = run_parallel()
+        for k in ("hash_encode_fwd", "scatter_add"):
+            results[k]["launches_by_path"]["data_parallel"] = [c[k] for c in dp_counts]
+        print(f"phase parallel wall {time.perf_counter() - t0:.2f} s", flush=True)
     imported = sorted(m for m in sys.modules if m in ("jax", "dnsjax", "matplotlib")
                       or m.startswith(("jax.", "jaxlib", "dnsjax.", "_dnsjax_mesh_",
                                        "matplotlib.")))

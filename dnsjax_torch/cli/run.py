@@ -6,6 +6,14 @@ Reads the same YAML stack as ``dnsjax.cli.run`` (scene config over
 values (YAML scalars), for short runs. ``--resume CKPT`` continues from a
 checkpoint of either package; ``--resume-latest`` from the output
 directory's ``model.npz``, else its highest ``model_N.npz``.
+
+``tpu.data_parallel: N`` (N > 1) runs over several processes, one rank a
+device (``slam/driver.py``): on a host with more than one card this
+command starts ``min(N, cards)`` ranks itself, rank r on ``cuda:r`` over
+NCCL. ``--ranks R`` starts R ranks explicitly (at most N): each on a card
+of its own over NCCL when there are R cards, else all on ``--device``
+over gloo (several ranks on one card, or on the CPU). Rank 0 alone writes
+to ``--output``.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import glob
 import os
 import random
 import re
+import sys
 
 import numpy as np
 
@@ -83,7 +92,13 @@ def main(argv=None):
     parser.add_argument("--resume-latest", action="store_true",
                         help="resume from the newest checkpoint in the output dir "
                              "(model.npz if present, else the highest model_N.npz)")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="processes of a tpu.data_parallel run (default: min(N, cards) "
+                             "with more than one card, else 1); see the module docstring")
     args = parser.parse_args(argv)
+    ranks = _ranks(args)
+    if ranks > 1:
+        return _spawn_ranks(args, ranks, argv)
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -103,6 +118,57 @@ def main(argv=None):
         print(f"resumed from {ckpt} at frame {start}", flush=True)
     slam.run(end_frame=args.end_frame, start_frame=start)
     return slam
+
+
+def _ranks(args) -> int:
+    """The ranks this command starts: ``--ranks``, else min(data_parallel,
+    cards) on a host with more than one card, else 1 (and 1 inside a rank)."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return 1
+    cfg = load_run_config(args.config, args.seed, args.set, args.input)
+    n_dp = int((cfg.get("tpu") or {}).get("data_parallel", 1))
+    if args.ranks is not None:
+        if not 1 <= args.ranks <= max(n_dp, 1):
+            raise SystemExit(f"--ranks {args.ranks}: needs 1 <= ranks <= tpu.data_parallel "
+                             f"({n_dp})")
+        return args.ranks
+    if n_dp > 1 and args.device.startswith("cuda") and torch.cuda.is_available():
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            return min(n_dp, cards)
+    return 1
+
+
+def rank_devices(device: str, ranks: int):
+    """One card a rank when there are enough, else every rank on
+    ``device``."""
+    import torch
+
+    if device.startswith("cuda") and torch.cuda.is_available() \
+            and torch.cuda.device_count() >= ranks:
+        return [f"cuda:{r}" for r in range(ranks)]
+    return [device] * ranks
+
+
+def _spawn_ranks(args, ranks: int, argv):
+    from dnsjax_torch.parallel.launch import backend_for, spawn
+
+    devices = rank_devices(args.device, ranks)
+    backend = backend_for(devices)
+    print(f"starting {ranks} ranks over {backend} on {devices}", flush=True)
+    # CPU ranks share the host's cores
+    threads = max(1, (os.cpu_count() or 1) // ranks) if devices[0] == "cpu" else 0
+    spawn(_rank_run, ranks, backend, devices, args=(list(argv or sys.argv[1:]),),
+          threads=threads, pg_timeout=1800.0, join_timeout=None)
+    return None
+
+
+def _rank_run(rank, device, argv):
+    """One rank of a data-parallel run: this command on ``device``."""
+    main(list(argv) + ["--device", str(device)])
 
 
 if __name__ == "__main__":

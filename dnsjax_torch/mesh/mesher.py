@@ -31,6 +31,12 @@ coarse field (``estimated_depths``, through the encode kernel);
 and crops the mesh to the scaled hull of the keyframes' depth clouds
 (``frames_hull``); ``get_mask_use_all_frames`` also keeps a vertex that any
 pose of the trajectory frames (``_frustum_any``).
+
+Under a ray mesh (``device_mesh=``, ``parallel/mesh.py:RayMesh``) each chunk
+of ``points_batch_size`` points (rounded up to split evenly) is queried in
+equal shares, one per rank, and gathered by one all-reduce; every rank then
+holds the whole chunk's results and runs the same host code, as dnsjax's
+``shard_map`` over chunk points does.
 """
 
 from __future__ import annotations
@@ -60,7 +66,6 @@ from dnsjax_torch.ops.mlp import mlp_apply
 from dnsjax_torch.render.composite import composite_rays
 from dnsjax_torch.render.sampling import sample_along_rays
 
-_ROADMAP = "ROADMAP.md, Queue 1: remaining items"
 EST_DEPTH_SAMPLES = 32  # stratified samples a ray of estimated_depths (dnsjax's)
 
 
@@ -81,9 +86,6 @@ class _Views(NamedTuple):
 class Mesher:
     def __init__(self, cfg: Dict[str, Any], cam: Dict[str, Any], bound: np.ndarray,
                  spec: DecoderSpec, compute_dtype=torch.bfloat16, device_mesh=None):
-        if device_mesh is not None:
-            raise NotImplementedError(
-                f"a sharded mesh query (device_mesh) is not ported yet ({_ROADMAP}, 4)")
         m = cfg["meshing"]
         tpu = cfg.get("tpu", {}) or {}
         self.resolution = int(m.get("resolution", 256))
@@ -123,6 +125,10 @@ class Mesher:
         self.cam = cam
         self.spec = spec
         self.compute_dtype = compute_dtype
+        self.device_mesh = device_mesh
+        if device_mesh is not None:
+            n = device_mesh.size  # the chunk must split evenly over the ranks
+            self.points_batch = -(-self.points_batch // n) * n
         self.last_timings: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -156,7 +162,21 @@ class Mesher:
         """dnsjax's signature: pts (B, 3) -> occ (B,), label (B,), color
         (B, 3), count (B,) of observing views."""
         views = self._views(kf_c2w, kf_valid, kf_feats, kf_labels, kf_depths)
-        return self._query(params, pts, views, bound)
+        packed = self._query_packed(params, pts, views, bound)
+        return packed[:, 0], packed[:, 1].to(torch.int32), packed[:, 2:5], packed[:, 5]
+
+    def _query_packed(self, params, pts: torch.Tensor, views: _Views, bound: torch.Tensor):
+        """(B, 6) float32 [occ, label, rgb, count] of the B points; under a
+        ray mesh each rank queries its share of the rows and the chunk is
+        gathered."""
+        mesh = self.device_mesh
+        local = pts
+        if mesh is not None:
+            a, b = mesh.rows(pts.shape[0])
+            local = pts[a:b]
+        o, lab, c, cnt = self._query(params, local, views, bound)
+        packed = torch.cat([o[:, None], lab.to(torch.float32)[:, None], c, cnt[:, None]], -1)
+        return packed if mesh is None else mesh.gather_rows(packed, pts.shape[0])
 
     def _visible(self, pts: torch.Tensor, views: _Views) -> List[bool]:
         """Per view: may any chunk point satisfy ``seen``? With every corner
@@ -404,10 +424,8 @@ class Mesher:
                 chunk = np.broadcast_to(p[e - 1], (B, 3)).copy()
                 chunk[: e - a] = p[a:e]
                 with torch.no_grad():
-                    o, lab, c, cnt = self._query(params, torch.as_tensor(chunk, device=dev),
-                                                 views, bound_t)
-                    packed = torch.cat([o[:, None], lab.to(torch.float32)[:, None], c,
-                                        cnt[:, None]], -1)
+                    packed = self._query_packed(params, torch.as_tensor(chunk, device=dev),
+                                                views, bound_t)
                 ev = None
                 if cuda:
                     bufs[i % 2].copy_(packed, non_blocking=True)
@@ -602,13 +620,16 @@ class Mesher:
         return faces[np.isin(lab[faces[:, 0]], keep_comp)]
 
     # ------------------------------------------------------------------
-    def save_mesh(self, driver, idx: int) -> None:
+    def save_mesh(self, driver, idx: int, write: bool = True) -> None:
         """Driver hook: extract and write ``mesh_{idx}.ply`` (and the
-        semantic and per-class variants)."""
+        semantic and per-class variants); ``write`` False extracts only (a
+        rank other than the first under a ray mesh)."""
         mesh = self.extract(driver.params, driver.enc_params, driver.keyframes,
                             getattr(driver, "class_colors", None),
                             all_poses=driver.estimate_c2w[: idx + 1],
                             kf_feats=driver.collect_kf_feats())
+        if not write:
+            return
         if mesh["faces"].shape[0] == 0:
             print(f"mesh_{idx}: empty")
             return

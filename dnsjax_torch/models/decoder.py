@@ -15,6 +15,8 @@ class), ``merge``, ``color`` and ``logit``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -110,10 +112,30 @@ def decoder_param_count(params: Params) -> int:
     return sum(int(x.numel()) for x in param_leaves(params))
 
 
+# The grid encode that pos_encode calls, as dnsjax's ``grid_encode_override``:
+# parallel/tp.py routes it through the row-sharded ``hash_encode_tp`` for the
+# duration of its keystep. A ContextVar confines the override to the context
+# that set it: another thread (the tracker beside an asynchronous keystep)
+# sees the default.
+_GRID_ENCODE: contextvars.ContextVar = contextvars.ContextVar(
+    "dnsjax_torch_grid_encode", default=hash_encode)
+
+
+@contextlib.contextmanager
+def grid_encode_override(fn):
+    """Route pos_encode's grid encode through ``fn`` inside this block
+    (``fn`` has hash_encode's signature: (table, pts01, grid spec))."""
+    token = _GRID_ENCODE.set(fn)
+    try:
+        yield
+    finally:
+        _GRID_ENCODE.reset(token)
+
+
 def pos_encode(params: Params, pts01: torch.Tensor, spec: DecoderSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """Points in [0,1]^3 -> (pe (..., 48), grid (..., L*F))."""
     pe = oneblob_encode(pts01, spec.n_bins, spec.oneblob_kernel)
-    return pe, hash_encode(params["table"], pts01, spec.grid)
+    return pe, _GRID_ENCODE.get()(params["table"], pts01, spec.grid)
 
 
 def coarse_apply(params, pe, grid, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -3,8 +3,12 @@ of an image, in fixed-size ray chunks, without gradients.
 
 dnsjax maps its chunk body with ``lax.map`` inside one jit; here it is a
 Python loop over 4096-ray chunks under ``torch.no_grad()``, so the encode
-kernel writes its output alone (no residuals). One device only: the
-data-parallel ``mesh=`` argument raises, as ``tpu.data_parallel > 1`` does.
+kernel writes its output alone (no residuals). Under a ray mesh
+(``mesh=``, ``parallel/mesh.py:RayMesh``) the padded rays split into one
+contiguous block of chunks per rank, as dnsjax's ``P("dp")`` splits its
+chunk axis; each rank renders its block and the frame is gathered by one
+all-reduce. The z draws are made once for the whole frame, before the
+split, from a generator every rank seeds alike.
 """
 
 from __future__ import annotations
@@ -47,14 +51,13 @@ def make_full_renderer(
     ``gen`` (a torch.Generator on the frame's device), or from ``z_draws =
     (t_surf, t_zero)`` when given (tests replay dnsjax's). ``taps``: the
     feature lookup; dnsjax's renderer always uses the bilinear 4 taps.
+    ``mesh``: a ray mesh whose ranks each render a share of the chunks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a data-parallel full-frame renderer is not ported yet "
-            "(ROADMAP.md, Queue 1: remaining items, 4)"
-        )
     H, W = int(cam["H"]), int(cam["W"])
     S = n_samples + n_surface
+    n = H * W
+    step = chunk * (1 if mesh is None else mesh.size)
+    n_pad = (n + step - 1) // step * step
 
     def render_frame(params, c2w, gt_depth, gt_label, refer_w2c, refer_feats, bound,
                      gen: Optional[torch.Generator] = None,
@@ -70,22 +73,27 @@ def make_full_renderer(
             if z_draws is None:
                 z_draws = draw_z_noise(gen, (), n_surface, dev)
             z = sample_along_rays(depthf, n_samples, n_surface, far, *z_draws)
-            color, depth, logits = [], [], []
-            for a in range(0, H * W, chunk):
-                ro, rd, zc = rays_o[a:a + chunk], rays_d[a:a + chunk], z[a:a + chunk]
-                gd = depthf[a:a + chunk]
+            lo, hi = (0, n) if mesh is None else mesh.rows(n_pad)
+            outs = []
+            for a in range(lo, min(hi, n), chunk):
+                e = min(a + chunk, hi, n)
+                ro, rd, zc, gd = rays_o[a:e], rays_d[a:e], z[a:e], depthf[a:e]
                 pts = ro[:, None, :] + rd[:, None, :] * zc[:, :, None]
                 code = match_features(params, pts.reshape(-1, 3), refer_w2c, refer_feats,
                                       cam, bound, spec, compute_dtype, taps
                                       ).reshape(pts.shape[0], S, -1)
                 trunc = (zc >= gd[:, None] * 0.95) & (zc <= gd[:, None] * 1.05) \
                     & (gd[:, None] > 0)
-                out = render_fine(params, spec, pts, zc, labelf[a:a + chunk],
+                out = render_fine(params, spec, pts, zc, labelf[a:e],
                                   code * trunc[..., None], bound, compute_dtype)
-                color.append(out.color)
-                depth.append(out.depth)
-                logits.append(out.logits)
-            return (torch.cat(color).reshape(H, W, 3), torch.cat(depth).reshape(H, W),
-                    torch.cat(logits).reshape(H, W, spec.n_class))
+                outs.append(torch.cat([out.color, out.depth[:, None], out.logits], -1).float())
+            rows = torch.cat(outs) if outs else torch.zeros(
+                (0, 4 + spec.n_class), dtype=torch.float32, device=dev)
+            if mesh is not None:
+                rows = torch.cat([rows, rows.new_zeros((hi - lo - rows.shape[0],)
+                                                       + rows.shape[1:])])
+                rows = mesh.gather_rows(rows, n_pad)[:n]
+            return (rows[:, :3].reshape(H, W, 3), rows[:, 3].reshape(H, W),
+                    rows[:, 4:].reshape(H, W, spec.n_class))
 
     return render_frame

@@ -32,6 +32,15 @@ that stood at dispatch; the main thread tracks on the default stream. The
 strict schedule without ``async_map`` runs inline, on one generator, and
 takes no copy of the map.
 
+``tpu.data_parallel: N`` runs the whole loop over the ranks of an
+initialized ``torch.distributed`` group (dnsjax's ``dp_devices = min(N,
+devices)``, the ranks being the devices; ``cli/run.py`` starts them): the
+tracker, the keystep, the mesher and the full-frame renderer split their
+rays or points over the ranks (``parallel/mesh.py``). Only the ray draws
+differ between ranks, from a generator seeded from the seed and the rank;
+every other draw and host decision is the same on every rank, and so are
+the map and the poses. The first rank alone writes files and logs.
+
 Config values the port does not implement raise ``NotImplementedError``
 naming their ROADMAP.md item, rather than silently running something else.
 """
@@ -48,13 +57,20 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dnsjax_torch.data import get_dataset
 from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, invert_se3, tensor_from_camera, tensor_from_camera_np
 from dnsjax_torch.mesh.mesher import Mesher, class_palette
 from dnsjax_torch.models.checkpoint import load_checkpoint, restore_params, save_checkpoint
-from dnsjax_torch.models.decoder import DecoderSpec, decoder_param_count, init_decoder_params
+from dnsjax_torch.models.decoder import (
+    DecoderSpec,
+    decoder_param_count,
+    init_decoder_params,
+    param_leaves,
+)
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
+from dnsjax_torch.parallel.mesh import make_map_fn_dp, ray_mesh
 from dnsjax_torch.slam.keyframes import KeyframeStore
 from dnsjax_torch.slam.mapper import (
     MapConfig,
@@ -80,6 +96,12 @@ def load_bound(cfg: Dict[str, Any]) -> np.ndarray:
     return bound.astype(np.float32)
 
 
+def _seed_of(*keys: int) -> int:
+    """A generator seed derived from integers (the run's seed, a frame, a
+    rank)."""
+    return int(np.random.SeedSequence(list(keys)).generate_state(1)[0])
+
+
 def map_device_index(index: int, n_devices: int) -> Optional[int]:
     """dnsjax's ``tpu.map_device`` rule: an index below 1, or at or above the
     number of devices, means the tracker's device (None)."""
@@ -93,10 +115,9 @@ def check_supported(cfg: Dict[str, Any], n_devices: int = 1) -> None:
     mp = cfg["mapping"]
     map_dev = map_device_index(int(tpu.get("map_device", 0)), n_devices)
     unsupported = [
-        (map_dev is not None, f"tpu.map_device: {map_dev} (a second device)", 4),
-        (int(tpu.get("data_parallel", 1)) > 1, "tpu.data_parallel > 1", 4),
-        (int(tpu.get("map_dp", 1)) > 1, "tpu.map_dp > 1", 4),
-        (bool(tpu.get("mesh_async", False)), "tpu.mesh_async", 4),
+        (map_dev is not None, f"tpu.map_device: {map_dev} (a second device)", 9),
+        (int(tpu.get("map_dp", 1)) > 1, "tpu.map_dp > 1", 9),
+        (bool(tpu.get("mesh_async", False)), "tpu.mesh_async", 9),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -123,7 +144,6 @@ class DNSSLAM:
         self.cfg = cfg
         self.verbose = bool(cfg.get("verbose", True))
         self.out_dir = output_dir or cfg.get("out_dir", "output")
-        os.makedirs(self.out_dir, exist_ok=True)
         self.scene = cfg.get("scene", "scene")
 
         scale = float(cfg.get("scale", 1))
@@ -138,6 +158,18 @@ class DNSSLAM:
         self.spec = DecoderSpec.from_config(cfg, self.bound_np, self.n_class)
 
         tpu = cfg.get("tpu", {}) or {}
+        # tpu.data_parallel over the ranks of the process group, dnsjax's
+        # dp_devices = min(data_parallel, devices)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        self.dp_devices = min(int(tpu.get("data_parallel", 1)), world)
+        self.mesh = None
+        if world != self.dp_devices:
+            raise ValueError(f"tpu.data_parallel={tpu.get('data_parallel', 1)} but the process "
+                             f"group has {world} ranks: start one rank a device")
+        if self.dp_devices > 1:
+            self.mesh = ray_mesh(device=self.device)
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.writes = self.rank == 0  # the first rank alone writes files and logs
         self.compute_dtype = (
             torch.bfloat16 if tpu.get("compute_dtype", "bfloat16") == "bfloat16"
             else torch.float32
@@ -145,8 +177,14 @@ class DNSSLAM:
         self.fix_refer_bug = bool(tpu.get("fix_refer_frame_bug", True))
         feature_taps = int(tpu.get("feature_taps", 4))
 
+        if self.writes:
+            os.makedirs(self.out_dir, exist_ok=True)
         seed = self.seed = int(cfg.get("seed", 0))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the tracker's and the keystep's rays: one generator per rank under
+        # data_parallel, else the run's own
+        self.ray_gen = self.gen if self.mesh is None else torch.Generator(
+            device=self.device).manual_seed(_seed_of(seed, self.rank))
         init_gen = torch.Generator().manual_seed(seed)
         self.params = init_decoder_params(self.spec, init_gen, self.device)
         self._track_params = self.params  # the tracker's map (a copy under async_map)
@@ -180,7 +218,7 @@ class DNSSLAM:
             smooth_every=int(trn.get("smooth_every", 1)),
             opacity_sigma=float(trn["opacity_sigma"]), feature_taps=feature_taps,
         )
-        self.tracker = Tracker(self.spec, self.track_cfg, self.compute_dtype)
+        self.tracker = Tracker(self.spec, self.track_cfg, self.compute_dtype, mesh=self.mesh)
         self.decoder_init_fn = make_decoder_init_fn(self.spec, self.map_cfg,
                                                     compute_dtype=self.compute_dtype)
         self.overlap_fn = make_overlap_score_fn(self.map_cfg)
@@ -206,6 +244,9 @@ class DNSSLAM:
         self._worker: Optional[ThreadPoolExecutor] = None
         self._map_stream = None  # the keystep's CUDA stream under async_map
         self._deferred = threading.local()  # the worker's log events, until its finish
+        # an asynchronous keystep's collectives run in its own thread, so in
+        # a process group of their own (every rank creates it here)
+        self._map_mesh = self.mesh.another() if self.mesh and self.async_map else self.mesh
 
         self.estimate_c2w = np.tile(np.eye(4, dtype=np.float32), (self.n_img, 1, 1))
         self.gt_c2w = np.tile(np.eye(4, dtype=np.float32), (self.n_img, 1, 1))
@@ -232,7 +273,8 @@ class DNSSLAM:
         self.class_colors = class_palette(self.n_class)
         self.mesher = None
         if self.mesh_every > 0 and "meshing" in cfg:
-            self.mesher = Mesher(cfg, cam, self.bound_np, self.spec, self.compute_dtype)
+            self.mesher = Mesher(cfg, cam, self.bound_np, self.spec, self.compute_dtype,
+                                 device_mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
@@ -417,19 +459,28 @@ class DNSSLAM:
                 new_list.append(min_c)
         return new_list
 
-    def _map_fn(self, n_target: int, n_iters: int):
-        k = (n_target, n_iters)
+    def _map_fn(self, n_target: int, n_iters: int, mesh=None):
+        # one keystep program a group: the main thread's and the worker's
+        k = (n_target, n_iters, None if mesh is None else id(mesh))
         if k not in self._map_fns:
-            self._map_fns[k] = make_map_fn(self.spec, self.map_cfg, n_target, n_iters,
-                                           self.compute_dtype)
+            if mesh is None:
+                self._map_fns[k] = make_map_fn(self.spec, self.map_cfg, n_target, n_iters,
+                                               self.compute_dtype)
+            else:
+                self._map_fns[k] = make_map_fn_dp(self.spec, self.map_cfg, n_target, n_iters,
+                                                  mesh, self.compute_dtype)
         return self._map_fns[k]
 
     def map_once(self, idx: int, cur, n_iters: int, mode: str, is_first: bool,
                  cur_c2w: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None,
-                 n_kf: Optional[int] = None):
+                 n_kf: Optional[int] = None, ray_gen: Optional[torch.Generator] = None):
         """One mapping call; returns (aux, refined current pose (4,4) on device).
-        ``gen``: its generator (default the run's); ``n_kf``: the keyframe
-        slots it may read (default the store's count)."""
+        ``gen``: its generator (default the run's); ``ray_gen``: its rays'
+        (default this rank's, ``gen`` when given without data_parallel);
+        ``n_kf``: the keyframe slots it may read (default the store's
+        count)."""
+        if ray_gen is None:
+            ray_gen = gen if gen is not None and self.mesh is None else self.ray_gen
         gen = self.gen if gen is None else gen
         n_kf = self.keyframes.count if n_kf is None else n_kf
         if cur_c2w is None:
@@ -449,8 +500,9 @@ class DNSSLAM:
         if new_decoders:
             window["lt_gate_iter"] = n_iters // 2
 
-        quads, Ts, aux = self._map_fn(len(slots), n_iters)(
-            self.params, quads0, Ts0, window, gen
+        mesh = self._map_mesh if self._in_worker() else self.mesh
+        quads, Ts, aux = self._map_fn(len(slots), n_iters, mesh)(
+            self.params, quads0, Ts0, window, ray_gen
         )
         c2w_new = camera_from_tensor(torch.cat([quads, Ts], -1))
         if self.is_ba:
@@ -474,6 +526,11 @@ class DNSSLAM:
                  "c2w": c2w, "bound": self.bound, "sorted_idx": srt, "offsets": off,
                  "feats": cur_feats[None]}
         losses = self.decoder_init_fn(self.params, frame, mask, self.gen if gen is None else gen)
+        mesh = self._map_mesh if self._in_worker() else self.mesh
+        if mesh is not None:
+            # every rank ran the same warm-up; the card's float atomics may
+            # order its sums differently, so the first rank's map is kept
+            mesh.broadcast_(param_leaves(self.params))
         self.decoder_inits.append({"frame": cur["index"], "classes": list(classes)})
         self._log_metric(event="decoder_init", frame=cur["index"], classes=list(classes),
                          iters=int(losses.shape[0]))
@@ -492,14 +549,18 @@ class DNSSLAM:
                                  t_dispatch=time.perf_counter() - t0)
         self._finish_map()
 
-    def _outer_calls(self, idx: int, cur, cur_c2w=None, gen=None, n_kf=None):
+    def _outer_calls(self, idx: int, cur, cur_c2w=None, gen=None, n_kf=None, ray_gen=None):
         """The keystep's two mapping calls; (aux, refined current pose)."""
         aux = None
         for o in range(2):
             mode = "overlap" if o % 2 == 0 else "global"
             aux, cur_c2w = self.map_once(idx, cur, self.n_iters // 2, mode, False, cur_c2w,
-                                         gen=gen, n_kf=n_kf)
+                                         gen=gen, n_kf=n_kf, ray_gen=ray_gen)
         return aux, cur_c2w
+
+    def _in_worker(self) -> bool:
+        """Is this the asynchronous keystep's worker thread?"""
+        return getattr(self._deferred, "events", None) is not None
 
     @staticmethod
     def _losses(aux):
@@ -512,8 +573,9 @@ class DNSSLAM:
         from the run's seed and the frame, the current pose and the
         keyframe count as they stand, and an event after the default
         stream's work so far, which the keystep's stream waits for."""
-        gen = torch.Generator(device=self.device).manual_seed(
-            int(np.random.SeedSequence([self.seed, idx]).generate_state(1)[0]))
+        gen = torch.Generator(device=self.device).manual_seed(_seed_of(self.seed, idx))
+        ray_gen = None if self.mesh is None else torch.Generator(
+            device=self.device).manual_seed(_seed_of(self.seed, idx, self.rank))
         cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
         ready = None
         if self.device.type == "cuda":
@@ -524,14 +586,14 @@ class DNSSLAM:
         if self._worker is None:
             self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="keystep")
         future = self._worker.submit(self._keystep_worker, idx, cur, cur_c2w,
-                                     self.keyframes.count, gen, ready)
+                                     self.keyframes.count, gen, ready, ray_gen)
         # cur and cur_c2w stay referenced until the finish, so the caching
         # allocator cannot hand their memory to the default stream meanwhile
         self._pending_map = dict(idx=idx, future=future, cur=cur, cur_c2w0=cur_c2w,
                                  is_ba=idx >= self.start_optimize_idx,
                                  t_dispatch=time.perf_counter() - t0)
 
-    def _keystep_worker(self, idx: int, cur, cur_c2w, n_kf: int, gen, ready):
+    def _keystep_worker(self, idx: int, cur, cur_c2w, n_kf: int, gen, ready, ray_gen=None):
         """The keystep in the worker thread, on the keystep's stream: both
         outer calls, then the losses read back on that stream. Returns
         (losses (4,), refined current pose, the log events it made)."""
@@ -543,7 +605,7 @@ class DNSSLAM:
             with ctx:
                 if ready is not None:
                     self._map_stream.wait_event(ready)
-                aux, cur_c2w = self._outer_calls(idx, cur, cur_c2w, gen, n_kf)
+                aux, cur_c2w = self._outer_calls(idx, cur, cur_c2w, gen, n_kf, ray_gen)
                 losses = self._losses(aux)
             return losses, cur_c2w, self._deferred.events
         finally:
@@ -636,7 +698,7 @@ class DNSSLAM:
             self._full_renderer = make_full_renderer(
                 self.spec, dict(H=ds.H, W=ds.W, fx=ds.fx, fy=ds.fy, cx=ds.cx, cy=ds.cy),
                 self.map_cfg.n_samples, self.map_cfg.n_surface,
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype, mesh=self.mesh)
         kf = self.keyframes
         refs = [max(kf.count - 2, 0), max(kf.count - 1, 0)]
         cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
@@ -646,6 +708,9 @@ class DNSSLAM:
         color, depth, logits = self._full_renderer(
             self.params, cur_c2w, cur["depth"], cur["label"], invert_se3(refer_c2w), feats,
             self.bound, self.gen)
+        if not self.writes:
+            self.vis_times.append(time.perf_counter() - t0)
+            return
         residual_panel(idx, self.out_dir, cur["host"]["color"], color.cpu().numpy(),
                        cur["host"]["depth"], depth.cpu().numpy(), cur["host"]["label"],
                        logits.argmax(-1).cpu().numpy(), max_label=max(self.n_class, 2))
@@ -653,7 +718,7 @@ class DNSSLAM:
 
     def save_mesh(self, idx: int) -> None:
         t0 = time.perf_counter()
-        self.mesher.save_mesh(self, idx)
+        self.mesher.save_mesh(self, idx, write=self.writes)
         self.mesh_times.append(time.perf_counter() - t0)
 
     # ------------------------------------------------------------------
@@ -663,7 +728,7 @@ class DNSSLAM:
         t7 = torch.as_tensor(t7, device=self.device)
         packed, n_run = self.tracker.track(
             self._track_params, feats, self._refer_w2c, cur["color"], cur["depth"],
-            cur["label"], t7[:4], t7[4:], self.bound, self.gen,
+            cur["label"], t7[:4], t7[4:], self.bound, self.ray_gen,
         )
         return packed.cpu().numpy().astype(np.float64), n_run
 
@@ -712,7 +777,10 @@ class DNSSLAM:
         return c2w
 
     def _log_line(self, name: str, line: str) -> None:
-        """Print a verbose log line and append it to ``<out>/<name>``."""
+        """Print a verbose log line and append it to ``<out>/<name>`` (the
+        first rank only)."""
+        if not self.writes:
+            return
         print(line, flush=True)
         with open(os.path.join(self.out_dir, name), "a") as f:
             f.write(line + "\n")
@@ -723,6 +791,8 @@ class DNSSLAM:
         deferred = getattr(self._deferred, "events", None)
         if deferred is not None:
             deferred.append(kw)
+            return
+        if not self.writes:
             return
         kw["t"] = time.time()
         with open(os.path.join(self.out_dir, "metrics.jsonl"), "a") as f:
@@ -783,7 +853,7 @@ class DNSSLAM:
         self.map_times.append(time.perf_counter() - t0)
         self.first_frame_optimized = True
         self._pre_color = f0["color"]
-        if self.verbose:
+        if self.verbose and self.writes:
             print(f"BACK: init mapping done in {self.map_times[-1]:.1f}s", flush=True)
         self._log_metric(event="init_map", seconds=self.map_times[-1])
 
@@ -842,13 +912,16 @@ class DNSSLAM:
             self._release_worker()
 
         self.save_checkpoint("model.npz", n - 1)
-        if self.verbose:
+        if self.verbose and self.writes:
             print(f"Decoder params: {decoder_param_count(self.params)}")
             print(f"track avg {np.mean(self.track_times) if self.track_times else 0:.3f}s "
                   f"map avg {np.mean(self.map_times):.2f}s", flush=True)
         return self.estimate_c2w[:n], self.gt_c2w[:n]
 
     def save_checkpoint(self, name: str, idx: int) -> None:
+        """Write the checkpoint ``<out>/<name>`` (the first rank only)."""
+        if not self.writes:
+            return
         save_checkpoint(
             os.path.join(self.out_dir, name), params=self.params,
             enc_params=self.enc_params, estimate_c2w=self.estimate_c2w,

@@ -324,13 +324,18 @@ def make_decoder_init_fn(spec: DecoderSpec, cfg: MapConfig, n_iters: int = 100,
 
 
 def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator,
-             n_iters: int):
+             n_iters: int, reduce=None, draws=None):
     """Run ``n_iters`` optimisation iterations with a fresh Adam.
 
     Updates ``params`` in place; returns (quads, Ts, aux) where aux holds
     the last iteration's loss terms and ``losses`` (n_iters,) on device.
     Pose gradients are masked by ``pose_train`` before each Adam update, so
     frozen poses carry zero gradients (and so never move), as in optax.
+    ``reduce``: under a mesh, ``reduce(values, grads) -> (values, grads)``
+    combines the iteration's [loss, loss terms...] and [map gradients
+    (table first)..., quads gradient, Ts gradient] over the ranks before
+    each update (``parallel/mesh.py``). ``draws``: each iteration's draws
+    (default: from ``gen``).
     """
     leaves = param_leaves(params)
     for p in leaves:
@@ -343,10 +348,12 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
     aux = None
     try:
         for it in range(n_iters):
-            draws = loss_fn.draw(gen, window, it)
+            d = draws[it] if draws is not None else loss_fn.draw(gen, window, it)
             opt.zero_grad(set_to_none=True)
-            loss, aux = loss_fn(params, quads, Ts, window, draws, it)
+            loss, aux = loss_fn(params, quads, Ts, window, d, it)
             loss.backward()
+            if reduce is not None:
+                loss, aux = _reduce_step(reduce, loss, aux, leaves + [quads, Ts])
             quads.grad.mul_(pose_train)
             Ts.grad.mul_(pose_train)
             opt.step()
@@ -358,6 +365,20 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
     aux = {k: v.detach() for k, v in aux.items()}
     aux["losses"] = torch.stack(losses)
     return quads.detach(), Ts.detach(), aux
+
+
+def _reduce_step(reduce, loss, aux, leaves):
+    """Combine one iteration's loss, loss terms and gradients (written back
+    into each leaf's ``.grad``) over the ranks with ``reduce``."""
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    keys = list(aux)
+    values, grads = reduce([loss.detach()] + [aux[k].detach() for k in keys],
+                           [p.grad for p in leaves])
+    for p, g in zip(leaves, grads):
+        p.grad.copy_(g)
+    return values[0], dict(zip(keys, values[1:]))
 
 
 def overlap_scores(depth, c2w, kf_est_c2w, kf_valid, pix, cfg: MapConfig,
@@ -391,13 +412,14 @@ def _build_loss_fn(spec: DecoderSpec, cfg: MapConfig, n_target: int,
 def make_map_fn(spec: DecoderSpec, cfg: MapConfig, n_target: int, n_iters: int,
                 compute_dtype=torch.bfloat16):
     """The keystep for a window of ``n_target`` frames:
-    ``fn(params, quads0, Ts0, window, gen) -> (quads, Ts, aux)``, updating
-    ``params`` in place."""
+    ``fn(params, quads0, Ts0, window, gen, draws=None) -> (quads, Ts,
+    aux)``, updating ``params`` in place (``draws``: see ``map_step``)."""
     loss_fn = _build_loss_fn(spec, cfg, n_target, compute_dtype)
 
-    def fn(params, quads0, Ts0, window, gen):
-        return map_step(loss_fn, params, quads0, Ts0, window, gen, n_iters)
+    def fn(params, quads0, Ts0, window, gen, draws=None):
+        return map_step(loss_fn, params, quads0, Ts0, window, gen, n_iters, draws=draws)
 
+    fn.loss_fn = loss_fn
     return fn
 
 

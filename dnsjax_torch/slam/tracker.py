@@ -25,6 +25,13 @@ the iteration's "improved" flag, one sync an iteration, and skips the
 iterations it no longer needs with their launches. A tracked frame is bound
 by launches, not by the device, so the sync costs little. Without early exit
 the host reads one packed vector a frame.
+
+Under a ray mesh (``Tracker(mesh=)``, dnsjax's ``make_track_fn(mesh=)``)
+every rank draws its own rays from its own generator, and each iteration's
+loss, loss terms and pose gradient (Adam) or normal equations JtJ, Jtr
+(LM) are averaged over the ranks before the update, as are the trial and
+final losses the LM solve compares: every rank takes the same branches and
+holds the same pose, and the early exit reads the averaged loss.
 """
 
 from __future__ import annotations
@@ -80,10 +87,14 @@ class TrackConfig:
 class Tracker:
     """Per-frame pose tracking (Adam or LM) against a frozen map."""
 
-    def __init__(self, spec, cfg: TrackConfig, compute_dtype=torch.bfloat16):
+    def __init__(self, spec, cfg: TrackConfig, compute_dtype=torch.bfloat16, mesh=None):
         if cfg.method not in ("adam", "lm"):
             raise ValueError(f"tracking.method={cfg.method!r}: expected adam|lm")
-        self.spec, self.cfg, self.dtype = spec, cfg, compute_dtype
+        self.spec, self.cfg, self.dtype, self.mesh = spec, cfg, compute_dtype, mesh
+
+    def _pmean(self, *tensors):
+        """The tensors averaged over the ray mesh (as they are without one)."""
+        return tuple(tensors) if self.mesh is None else tuple(self.mesh.pmean(tensors))
 
     def draw(self, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
         """One iteration's random numbers: pixels in the inner crop and the
@@ -164,20 +175,29 @@ class Tracker:
     def lm_delta(J, r, lam):
         """Marquardt-damped Gauss-Newton step: solve (JtJ + lam diag(JtJ) +
         1e-8 I) delta = -Jt r."""
-        JTJ = J @ J.T
-        A = JTJ + lam * torch.diag(torch.diagonal(JTJ)) + 1e-8 * torch.eye(7, device=J.device)
-        return -torch.linalg.solve(A, J @ r)
+        return Tracker.lm_delta_normal(J @ J.T, J @ r, lam)
+
+    @staticmethod
+    def lm_delta_normal(JTJ, JTr, lam):
+        """``lm_delta`` from the normal equations' JtJ (7, 7) and Jtr (7,)."""
+        A = JTJ + lam * torch.diag(torch.diagonal(JTJ)) + 1e-8 * torch.eye(7, device=JTJ.device)
+        return -torch.linalg.solve(A, JTr)
 
     def lm_step(self, quad, T, lam, J, r):
         """The trial (quad, T) after one damped step, with the quaternion
         renormalised (quat_to_rotation is scale-invariant)."""
-        delta = self.lm_delta(J, r, lam)
+        return self.lm_step_normal(quad, T, lam, J @ J.T, J @ r)
+
+    def lm_step_normal(self, quad, T, lam, JTJ, JTr):
+        """``lm_step`` from the normal equations."""
+        delta = self.lm_delta_normal(JTJ, JTr, lam)
         q = quad + delta[:4]
         return q / torch.linalg.norm(q), T + delta[4:]
 
     def eval_loss(self, quad, T, frame, draws):
+        """(loss, p, d) at (quad, T) on ``draws``, averaged over the mesh."""
         with torch.no_grad():
-            return self.resid(quad, T, frame, draws)[1]
+            return self._pmean(*self.resid(quad, T, frame, draws)[1])
 
     def adam_lr(self, step: int):
         """(quad lr, T lr) of Adam step ``step`` (0-based)."""
@@ -194,7 +214,8 @@ class Tracker:
         with torch.enable_grad():
             loss, p, d = self.losses_from(*self.forward(q, t, frame, draws))
             gq, gt = torch.autograd.grad(loss, (q, t))
-        return (loss.detach(), p.detach(), d.detach()), (gq, gt)
+        loss, p, d, gq, gt = self._pmean(loss.detach(), p.detach(), d.detach(), gq, gt)
+        return (loss, p, d), (gq, gt)
 
     @staticmethod
     def _keep(best, loss, quad, T, p, d):
@@ -253,8 +274,9 @@ class Tracker:
         while it < cfg.lm_iters:
             draws = draw(it)
             r, J, (loss, p, d) = self.linearize(quad, T, frame, draws)
+            JTJ, JTr, loss, p, d = self._pmean(J @ J.T, J @ r, loss, p, d)
             best, better = self._keep(best, loss, quad, T, p, d)
-            q_new, T_new = self.lm_step(quad, T, lam, J, r)
+            q_new, T_new = self.lm_step_normal(quad, T, lam, JTJ, JTr)
             new_loss = self.eval_loss(q_new, T_new, frame, draws)[0]
             accept = new_loss < loss
             quad = torch.where(accept, q_new, quad)

@@ -37,13 +37,16 @@ def _cfg(*overrides):
 
 
 @pytest.mark.parametrize("override", [
-    "tpu.data_parallel=2",
+    "tpu.map_device=1",
     "tpu.map_dp=2",
     "tpu.mesh_async=true",
 ])
 def test_unsupported_config_raises(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdrv.check_supported(_cfg(*override.split(",")))
+    """The composed operating point (ROADMAP.md Queue 1, item 9): a keystep
+    on a second device than the tracker's, sharded or not, and the mesher
+    beside them."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1.*, 9\)"):
+        tdrv.check_supported(_cfg(*override.split(",")), n_devices=2)
 
 
 @pytest.mark.parametrize("override,check", [
@@ -58,6 +61,8 @@ def test_unsupported_config_raises(override):
     ("tpu.async_map=true", lambda s: s.sync_method == "strict" and s.async_map),
     # one device: map_device names no second one, so the keystep stays on it
     ("tpu.map_device=1", lambda s: s.device.type == "cpu"),
+    # without a process group, dnsjax's min(data_parallel, devices) is 1
+    ("tpu.data_parallel=2", lambda s: s.dp_devices == 1 and s.mesh is None),
     ("mapping.mesh_every=10,meshing.show_forecast=true", lambda s: s.mesher.show_forecast),
     ("mapping.mesh_every=10,meshing.get_mask_use_all_frames=true",
      lambda s: s.mesher.mask_all_frames),

@@ -7,7 +7,9 @@ port's own numpy metrics, cull and PLY code), run the dense-grid encoder,
 the mesh metrics with the native raycaster, the ATE plot and the A/B gate's
 ``build_variant_cfg``, a short run with asynchronous keysteps (``sync_method:
 loose``) and the visualizer's replay of it, import the strict/async pairs
-script, then check sys.modules for jax, dnsjax and matplotlib. Runtime
+script, run the row-sharded encode and the data- and tensor-parallel
+keysteps in a one-rank gloo group, then check sys.modules for jax, dnsjax
+and matplotlib. Runtime
 budget: ~45 s on one core."""
 
 import os
@@ -116,6 +118,24 @@ est, _ = arun.run(end_frame=5)
 assert np.isfinite(est).all() and len(arun.map_times) >= 3
 assert len(visualizer.main(["configs/synthetic/synthetic.yaml", "--output", aout,
                             "--every", "2"])) == 2
+import torch.distributed as dist
+from dnsjax_torch.parallel import (dp_tp_mesh, hash_encode_tp, make_map_fn_dp, make_map_fn_dp_tp,
+                                   ray_mesh, shard_params)
+from dnsjax_torch.parallel.launch import spawn  # noqa: F401
+dist.init_process_group("gloo", init_method="file://" + os.path.join(sys.argv[1], "store"),
+                        world_size=1, rank=0)
+grid = dp_tp_mesh(1, 1, device="cpu")
+tl = table.detach().clone().requires_grad_(True)
+hash_encode_tp(tl, pts.detach(), spec, grid.tp).square().sum().backward()
+assert tl.grad is not None
+window, q0, t0, _, _ = slam._build_window([], f0, torch.as_tensor(f0["host"]["c2w"]))
+q, _, aux = make_map_fn_dp(slam.spec, slam.map_cfg, q0.shape[0], 1, ray_mesh(device="cpu"),
+                           slam.compute_dtype)(slam.params, q0, t0, window, slam.gen)
+assert torch.isfinite(aux["losses"]).all()
+q, _, aux = make_map_fn_dp_tp(slam.spec, slam.map_cfg, q0.shape[0], 1, grid, slam.compute_dtype)(
+    shard_params(slam.params, grid.tp), q0, t0, window, slam.gen)
+assert torch.isfinite(aux["losses"]).all()
+dist.destroy_process_group()
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules

@@ -81,9 +81,28 @@ def test_full_renderer_matches(dtype):
 
 
 def test_full_renderer_mesh_raises():
+    """``mesh=`` takes a ray mesh (``parallel/mesh.py:RayMesh``; anything
+    else raises); a mesh of one rank renders the frame the single process
+    renders, bit for bit (the renderers over several ranks:
+    tests/test_torch_parallel_loop.py)."""
+    from dnsjax_torch.parallel import RayMesh
+
+    cfg = {"cam": dict(CAM, png_depth_scale=1000.0, crop_edge=0),
+           "synthetic": {"n_frames": 1, "seed": 0}}
+    f = SyntheticDataset(cfg)[0]
     tsp = td.DecoderSpec(n_class=3, grid=th.HashGridSpec(**GRID))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(AttributeError):
         t_full(tsp, CAM, 8, 5, mesh=object())
+    tp = td.init_decoder_params(tsp, torch.Generator().manual_seed(0))
+    feats = torch.rand((3, H // 2, W // 2, 64), generator=torch.Generator().manual_seed(1))
+    w2c = torch.linalg.inv(T(f["c2w"]))[None].repeat(3, 1, 1)
+    bound = T(np.array([[-2.2, 2.2]] * 3, np.float32))
+    args = (tp, T(f["c2w"]), T(f["depth"]), T(f["label"]).clamp(max=2), w2c, feats, bound)
+    draws = (torch.rand(5), torch.rand(5))
+    one = t_full(tsp, CAM, 8, 5, chunk=100, mesh=RayMesh(1, 0, torch.device("cpu")))(
+        *args, z_draws=draws)
+    single = t_full(tsp, CAM, 8, 5, chunk=100)(*args, z_draws=draws)
+    assert all(torch.equal(a, b) for a, b in zip(one, single))
 
 
 def test_lpips_matches_dnsjax(tmp_path, monkeypatch):
