@@ -7,9 +7,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      build of the kernels from ``dnsjax_torch/csrc`` (one nvcc per source);
   2. kernels: each CUDA kernel against its plain PyTorch twin on the same
      inputs, at the shapes of the textured scene (4 levels, 2^16 rows, 8
-     features, tet; the 1992-ray mapping batch, the 500-ray tracking batch,
-     47 samples each, with residuals; without them, the mesh query's chunk
-     of ``meshing.points_batch_size`` points and the full-frame renderer's
+     features, tet; the 1992-ray mapping batch, its 996-ray share on each of
+     phase 3g's two keystep shards, the 500-ray tracking batch, 47 samples
+     each, with residuals; without them, the mesh query's chunk of
+     ``meshing.points_batch_size`` points, its half on each of phase 3g's
+     two extraction ranks, and the full-frame renderer's
      chunk of 4096 rays x 47 samples), of the reference-parity grid (16
      levels, 2^16 rows, 2 features, trilinear, float32 rows, all 8 corners,
      ``scatter: xla``; the same two batches) and of the synthetic scene (8
@@ -17,8 +19,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      residuals, position gradient and forward-mode tangent; the fused table
      gradient against ``table_grad_plain`` in each case's mode and in the
      other value modes, one corner and all corners, and its values-as-given
-     mode against ``scatter_add_plain``, timed at the textured and parity
-     mapping shapes (textured on uniform and on ray-shaped points) beside
+     mode against ``scatter_add_plain``, timed at the textured, shard and
+     parity mapping shapes (textured on uniform and on ray-shaped points) beside
      the torch prepass it replaces, with a profiler count of each path's
      device kernels; its level-draw mode (``model.grid.grad_levels: 1``:
      one tet corner under ``pallas_sr``, all trilinear corners) at the
@@ -34,7 +36,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (the factory's 4-level dense grid, 16..64, 2^19 rows) on 131,072
      points with and without residuals against the encode twin, timed;
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
-     card (all 40 frames unless --end-frame) with ``mapping.vis_every=20``,
+     card (frames 0-24 unless --end-frame) with ``mapping.vis_every=20``,
      ``mapping.mesh_every=20`` and ``mapping.checkpoint_every=20``, then ATE
      RMSE of the written model.npz, last keystep PSNR, the hooks' walls and
      the kernels' launch counts in that run; every ``track`` event of its
@@ -58,10 +60,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      ``@kf`` protocol (frames 4 and 11): ATE and PSNR bounds, finite mIoU,
      both kernels launched;
   3e. async keysteps: the textured run with ``tpu.async_map`` under the
-     strict schedule, frames 0-20 (line ``slam_async``), then ``sync_method:
-     loose`` for 12 frames (line ``slam_loose``): ATE and PSNR bounds, both
+     strict schedule, frames 0-10 (line ``slam_async``), then ``sync_method:
+     loose`` for 6 frames (line ``slam_loose``): ATE and PSNR bounds, both
      kernels launched on the keystep's own stream, the wall from the
-     bootstrap's end to frame 20's keystep beside phase 3's (from the two
+     bootstrap's end to frame 10's keystep beside phase 3's (from the two
      runs' ``metrics.jsonl``); then a torch.profiler window from one
      keystep's dispatch to its finish with a tracked frame between: the
      device's busy share and the time the two streams' kernels overlap;
@@ -75,12 +77,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      within a stated tolerance of this process's keystep, the ranks' maps
      bit for bit alike); the mesher's query chunk and 128^3 extraction and
      a render of frame 20 over the ranks (``mesh_dp``, ``render_dp``); then
-     CONFIG through the driver with ``tpu.data_parallel: 2``, frames 0-10
+     CONFIG through the driver with ``tpu.data_parallel: 2``, frames 0-5
      (``slam_dp``: ATE and PSNR bounds, the ranks' trajectories and maps
      alike, both kernels launched on each rank, files only under the first
      rank's output, the loop's wall beside phase 3's to frame 10);
+  3g. composed: the composed operating point (``tpu.map_device: 1``,
+     ``tpu.map_dp: 2``, ``tpu.mesh_async``, ``sync_method: loose``) on 3 gloo
+     ranks sharing the card, CONFIG through the driver, frames 0-10 with the
+     128^3 mesh of frame 10 (line ``slam_composed``: ATE and PSNR bounds, the
+     encode launched on every rank, the table gradient on each keystep rank
+     and on no other, the maps, trajectories and keyframes alike, the mesh
+     non-empty, in bound and written once by the keystep's first rank, the
+     loop's wall beside phase 3's to frame 10); then ``tpu.map_device: 1``
+     alone on 2 of the ranks for 6 frames (``slam_map_device``);
   4. outputs: ``dnsjax_torch.cli.extract_mesh --resolution 256`` and
-     ``dnsjax_torch.cli.eval_2d --every 10`` on that model.npz, with the
+     ``dnsjax_torch.cli.eval_2d --every 20`` on that model.npz, with the
      encode kernel's launches in each; sanity bounds on the mesh and the
      metrics; ``eval_3d`` of the 256^3 mesh against ``mesh_20.ply`` (4
      virtual views through the native raycaster) and against itself, and
@@ -381,6 +392,9 @@ def check_kernels(results, plain_shapes):
     cases = [
         # (name, spec kwargs, N, timed, table-gradient variants: spec changes)
         ("textured-map", TEXTURED, 1992 * 47, True, []),
+        # a keystep shard of phase 3g (COMPOSED_MAP_DP shards at a fixed
+        # total ray budget: half the rays a shard)
+        ("textured-map-shard", TEXTURED, (1992 // COMPOSED_MAP_DP) * 47, True, []),
         ("textured-track", TEXTURED, 500 * 47, True, []),
         # the adopted bundle's 16 + 15 samples a ray (ROADMAP Queue 3, fault 7)
         ("textured-map-ns16", TEXTURED, 1992 * 31, False, []),
@@ -459,7 +473,7 @@ def check_kernels(results, plain_shapes):
                 sca["max_abs_err"] = max(sca["max_abs_err"], _check_table_grad(
                     f"{name} {lvl_name}", lvl_spec, li, lw, gl))
                 sca["shapes"].append(_time_table_grad(f"{name} {lvl_name}", lvl_spec, li, lw, gl))
-        if name == "parity-map":
+        if name in ("parity-map", "textured-map-shard"):
             sca["shapes"].append(_time_table_grad(name, spec, idx, w, gl))
     # the table gradient again at the mapping shape, on ray-shaped points
     spec = hashgrid.HashGridSpec(**TEXTURED)
@@ -607,11 +621,13 @@ def check_sorted_scatter(res, textured_grad, gen):
 
 CONFIG = os.path.join(ROOT, "configs", "synthetic", "textured.yaml")
 OUT = os.path.join(ROOT, "output", "chip_smoke_textured")
+MAIN_FRAMES = 25  # phase 3: frames 0-24 (hooks and model_20.npz at 20) of the scene's 40
 
 
 def plain_encode_shapes():
     """(name, points) of the encode's calls without residuals on the output
-    paths of CONFIG: a mesh query chunk (``meshing.points_batch_size``), a
+    paths of CONFIG: a mesh query chunk (``meshing.points_batch_size``), its
+    share on each of phase 3g's COMPOSED_MAP_DP extraction ranks, a
     full-frame render chunk (the renderer's rays x samples a ray) and a
     chunk of ``use_est_depth``'s keyframe depths (``Mesher.estimated_depths``'
     rays x ``EST_DEPTH_SAMPLES`` a ray)."""
@@ -625,7 +641,8 @@ def plain_encode_shapes():
     rays = inspect.signature(make_full_renderer).parameters["chunk"].default
     samples = int(cfg["training"]["n_samples_ray"]) + int(cfg["training"]["n_surface_ray"])
     est_rays = inspect.signature(Mesher.estimated_depths).parameters["chunk"].default
-    return [("mesh-chunk", int(cfg["meshing"]["points_batch_size"])),
+    chunk = int(cfg["meshing"]["points_batch_size"])
+    return [("mesh-chunk", chunk), ("mesh-chunk-shard", chunk // COMPOSED_MAP_DP),
             ("render-chunk", rays * samples),
             ("est-depth-chunk", est_rays * EST_DEPTH_SAMPLES)]
 
@@ -856,7 +873,7 @@ def run_outputs(slam):
 
     _reset_counts()
     t0 = time.perf_counter()
-    res = eval_2d.evaluate([CONFIG, "--device", "cuda", "--output", OUT, "--every", "10"])
+    res = eval_2d.evaluate([CONFIG, "--device", "cuda", "--output", OUT, "--every", "20"])
     line = dict(wall_s=time.perf_counter() - t0, frames=[r["frame"] for r in res["rows"]],
                 render_s=res["render_s"], avg=res["avg"], launches=_counts())
     print("eval_2d " + json.dumps(line), flush=True)
@@ -951,7 +968,7 @@ def _loop_wall(out, frame):
     return next(e["t"] for e in events if e["event"] == "map" and e["frame"] == frame) - t0
 
 
-def run_async(frame: int = 20, loose_frames: int = 12):
+def run_async(frame: int = 10, loose_frames: int = 6):
     """Phase 3e: the textured run with asynchronous keysteps under the strict
     schedule through ``frame`` (the last frame maps), beside phase 3's wall
     to the same keystep, then ``sync_method: loose``; then the profiler
@@ -1093,7 +1110,7 @@ def run_visualizer(every: int = 5):
 
 OUT_DP = os.path.join(ROOT, "output", "chip_smoke_dp")
 DP_RANKS = 2
-DP_FRAMES = 11  # frames 0-10 of the textured run: keysteps at 0, 5 and 10
+DP_FRAMES = 6  # frames 0-5 of the textured run: the bootstrap and the keystep at 5
 DP_ITERS = 20   # one keystep call of the parallel_dp line
 DP_FRAME = 20   # the frame of phase 3's model_20.npz that the window, query and render use
 # The DP keystep against the single process on one generator's draws. Both
@@ -1235,7 +1252,7 @@ def _dp_rank(rank, device, config, run):
     """One of DP_RANKS gloo ranks on the one card: the row-sharded encode,
     one DP keystep call, the mesher's query and extraction and a render
     over the ranks on phase 3's map, then CONFIG through the driver with
-    ``tpu.data_parallel``, frames 0-10, with this rank's kernel launches."""
+    ``tpu.data_parallel``, frames 0-5, with this rank's kernel launches."""
     import hashlib
 
     import numpy as np
@@ -1435,7 +1452,7 @@ def run_parallel():
         if not (f["color_max_err"] <= 1e-3 and f["depth_max_err"] <= 1e-3):
             raise AssertionError(f"the DP renderer disagrees with one process: {render_line}")
 
-    # slam_dp: CONFIG through the driver on the ranks, frames 0-10
+    # slam_dp: CONFIG through the driver on the ranks, frames 0-5
     runs = [res["slam"] for res in ranks]
     ate = float(ate_stats(os.path.join(runs[0]["out"], "model.npz"))[
         "absolute_translational_error.rmse"])
@@ -1459,6 +1476,158 @@ def run_parallel():
     if not runs[0]["files"] or any(r["files"] for r in runs[1:]):
         raise AssertionError(f"files outside the first rank's output, or none there: {line}")
     return [{k: c[k] for k in ("hash_encode_fwd", "scatter_add")} for c in line["launches"]]
+
+
+OUT_COMPOSED = os.path.join(ROOT, "output", "chip_smoke_composed")
+COMPOSED_RANKS = 3  # the tracker on rank 0, the keystep on ranks 1-2; they share the card
+COMPOSED_DEVICE = "cuda:0"
+# the composed operating point (dnsjax's README "pod" point): frames 0-10,
+# the keystep sharded over 2 ranks at a fixed total ray budget, the 128^3
+# extraction of frame 10 beside the loop; then map_device alone, 2 ranks
+COMPOSED_MAP_DP = 2
+COMPOSED_RUNS = (
+    ("slam_composed", ["tpu.map_device=1", f"tpu.map_dp={COMPOSED_MAP_DP}", "tpu.mesh_async=true",
+                       "sync_method=loose", "mapping.mesh_every=10",
+                       "meshing.resolution=128"], 11),
+    ("slam_map_device", ["tpu.map_device=1"], 6),
+)
+
+
+def _composed_rank(rank, device, config, runs):
+    """One of COMPOSED_RANKS gloo ranks on the one card: each of ``runs``
+    (name, overrides, frames) through the driver into one output dir a run,
+    every rank on it as ``cli/run.py``'s ranks are, with this rank's kernel
+    launches counted from 0 just before the run."""
+    import hashlib
+
+    import numpy as np
+
+    from dnsjax_torch.cli.run import load_run_config
+    from dnsjax_torch.models.decoder import param_leaves
+    from dnsjax_torch.slam.driver import DNSSLAM
+
+    out = {}
+    for name, sets, frames in runs:
+        run_out = os.path.join(OUT_COMPOSED, name)
+        cfg = load_run_config(config, 0, sets)
+        cfg["verbose"] = rank == 0
+        slam = DNSSLAM(cfg, output_dir=run_out, device=str(device))
+        _reset_counts()
+        t0 = time.perf_counter()
+        est, _ = slam.run(end_frame=frames)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        active = slam.tracks or slam.maps
+        out[name] = dict(
+            tracks=slam.tracks, maps=slam.maps, keystep_ranks=slam.keystep_ranks,
+            wall_s=wall, launches=launches, side_stream_launches=_side_counts(), est=est,
+            out=run_out, psnr=slam.last_map_aux.get("psnr"), keystep_pixels=slam.keystep_cfg.n_pixels,
+            track_avg_s=float(np.mean(slam.track_times)) if slam.track_times else None,
+            keystep_avg_s=float(np.mean(slam.map_times[1:])) if len(slam.map_times) > 1 else None,
+            init_map_s=slam.map_times[0] if slam.map_times else None,
+            mesh_files=list(slam.mesh_files), mesh_errors=list(slam._mesh_errors),
+            mesh_thread_joined=slam._mesh_thread is None, mesh_s=list(slam.mesh_times),
+            kf_ids=list(slam.keyframes.frame_ids),
+            mc_bound=None if slam.mesher is None else slam.mesher.mc_bound.tolist(),
+            map_sha256=hashlib.sha256(b"".join(
+                p.cpu().numpy().tobytes() for p in param_leaves(slam.params))).hexdigest()
+            if active else None)
+        del slam
+    return out
+
+
+def run_composed():
+    """Phase 3g: the composed operating point on COMPOSED_RANKS gloo ranks
+    sharing the card, through the driver: ``tpu.map_device: 1``, ``tpu.map_dp:
+    2``, ``tpu.mesh_async``, ``sync_method: loose``, frames 0-10 with the 128^3
+    mesh of frame 10 (line ``slam_composed``: ATE and PSNR bounds, the encode
+    launched on every rank, the table gradient on each keystep rank and never
+    on rank 0, the maps alike bit for bit, the mesh non-empty, in bound and
+    written once, the loop's wall beside phase 3's to frame 10); then
+    ``tpu.map_device: 1`` alone on 2 ranks for 6 frames (``slam_map_device``,
+    rank 2 idle). Returns each run's launches by rank."""
+    import numpy as np
+
+    from dnsjax_torch.cli.eval_ate import ate_stats
+    from dnsjax_torch.mesh.export import read_ply
+    from dnsjax_torch.parallel.launch import spawn
+
+    _compute_mode()
+    if os.path.isdir(OUT_COMPOSED):
+        shutil.rmtree(OUT_COMPOSED)
+    t0 = time.perf_counter()
+    ranks = spawn(_composed_rank, COMPOSED_RANKS, "gloo", [COMPOSED_DEVICE] * COMPOSED_RANKS,
+                  args=(CONFIG, COMPOSED_RUNS), pg_timeout=600.0, join_timeout=900.0,
+                  scratch=os.path.join(OUT_COMPOSED, "ranks"))
+    ranks_s = time.perf_counter() - t0
+    counts = {}
+    for name, sets, frames in COMPOSED_RUNS:
+        runs = [r[name] for r in ranks]
+        r0 = runs[0]
+        keystep = [i for i, r in enumerate(runs) if r["maps"]]
+        active = [i for i, r in enumerate(runs) if r["tracks"] or r["maps"]]
+        ate = float(ate_stats(os.path.join(r0["out"], "model.npz"))[
+            "absolute_translational_error.rmse"])
+        written = [p for r in runs for p in r["mesh_files"]]
+        mesh = None
+        if written:
+            v, f, _, _ = read_ply(written[0])
+            mesh = dict(file=os.path.basename(written[0]), vertices=int(v.shape[0]),
+                        faces=int(f.shape[0]), finite=bool(np.isfinite(v).all()),
+                        lo=v.min(0).tolist() if len(v) else None,
+                        hi=v.max(0).tolist() if len(v) else None)
+        line = dict(
+            frames=frames, ranks=COMPOSED_RANKS, backend="gloo", sets=sets,
+            keystep_ranks=r0["keystep_ranks"], keystep_pixels=[runs[i]["keystep_pixels"]
+                                                               for i in keystep],
+            ate_rmse_m=ate, last_keystep_psnr=r0["psnr"],
+            launches=[r["launches"] for r in runs],
+            side_stream_launches=[r["side_stream_launches"] for r in runs],
+            maps_identical=len({runs[i]["map_sha256"] for i in active}) == 1,
+            trajectories_identical=all(np.array_equal(runs[i]["est"], r0["est"])
+                                       for i in active),
+            keyframes_identical=all(runs[i]["kf_ids"] == r0["kf_ids"] for i in active),
+            mesh_files=[[os.path.basename(p) for p in r["mesh_files"]] for r in runs],
+            mesh=mesh, mesh_errors=[e for r in runs for e in r["mesh_errors"]],
+            mesh_threads_joined=all(r["mesh_thread_joined"] for r in runs),
+            mesh_s=[r["mesh_s"] for r in runs], wall_s=[r["wall_s"] for r in runs],
+            init_map_s=r0["init_map_s"], track_avg_s=r0["track_avg_s"],
+            keystep_avg_s=r0["keystep_avg_s"], spawn_and_runs_s=ranks_s,
+            loop_s=_loop_wall(r0["out"], frames - 1),
+            single_loop_s=_loop_wall(OUT, frames - 1) if os.path.exists(
+                os.path.join(OUT, "metrics.jsonl")) else None)
+        print(f"{name} " + json.dumps(line), flush=True)
+        if not (np.isfinite(ate) and ate < 0.3 and r0["psnr"] is not None
+                and r0["psnr"] > 20.0):
+            raise AssertionError(f"{name} out of bounds: {line}")
+        if not (line["maps_identical"] and line["trajectories_identical"]
+                and line["keyframes_identical"]):
+            raise AssertionError(f"{name}: the ranks' maps, trajectories or keyframes differ")
+        for i in active:
+            c = runs[i]["launches"]
+            if c["hash_encode_fwd"] <= 0:
+                raise AssertionError(f"{name}: rank {i} never launched the encode: {line}")
+            if (c["scatter_add"] > 0) != (i in keystep):
+                raise AssertionError(f"{name}: the table gradient on rank {i} "
+                                     f"({c['scatter_add']}) is not the keystep's: {line}")
+        if r0["keystep_ranks"][0] != 1 or 0 in keystep:
+            raise AssertionError(f"{name}: the keystep is not on ranks of its own: {line}")
+        if "mapping.mesh_every=10" in sets:
+            want = f"mesh_{frames - 1}.ply"
+            if not (mesh and mesh["file"] == want and len(written) == 1
+                    and runs[keystep[0]]["mesh_files"] == written):
+                raise AssertionError(f"{name}: {want} not written once by the keystep's "
+                                     f"first rank: {line}")
+            bound = np.asarray(runs[keystep[0]]["mc_bound"])  # padded by 0.05, as phase 4
+            if not (mesh["faces"] > 0 and mesh["finite"]
+                    and (np.asarray(mesh["lo"]) >= bound[:, 0] - 0.05 - 1e-4).all()
+                    and (np.asarray(mesh["hi"]) <= bound[:, 1] + 0.05 + 1e-4).all()):
+                raise AssertionError(f"{name}: mesh empty or out of bound: {line}")
+            if line["mesh_errors"] or not line["mesh_threads_joined"]:
+                raise AssertionError(f"{name}: the extraction's thread failed: {line}")
+        counts[name] = [{k: r["launches"][k] for k in ("hash_encode_fwd", "scatter_add")}
+                        for r in runs]
+    return counts
 
 
 def profile_slam(slam, n_iters: int = 20, name: str = "slam", idx=None):
@@ -1551,13 +1720,14 @@ def main(argv=None):
     dense_counts = check_kernels(results, plain_encode_shapes())
     print(f"phase kernels wall {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
-    slam, launches = run_slam(args.end_frame)
+    main_frames = args.end_frame or MAIN_FRAMES
+    slam, launches = run_slam(main_frames)
     print(f"phase slam wall {time.perf_counter() - t0:.2f} s", flush=True)
     for k, v in launches.items():
         results[k]["launches"] = v
         results[k]["launches_by_path"] = {"slam": v, "encodings_dense": dense_counts[k]}
     t0 = time.perf_counter()
-    profile_slam(slam)
+    profile_slam(slam, idx=min(main_frames, slam.n_img) - 1)
     print(f"phase profile wall {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     for path, counts in run_outputs(slam).items():
@@ -1591,7 +1761,7 @@ def main(argv=None):
     for k, v in gate_counts.items():
         results[k]["launches_by_path"]["ab_quality_smoke"] = v
     print(f"phase gate smoke wall {time.perf_counter() - t0:.2f} s", flush=True)
-    if args.end_frame is None or args.end_frame > 20:
+    if args.end_frame is None or args.end_frame > 10:
         t0 = time.perf_counter()
         for path, counts in run_async().items():
             for k in results:
@@ -1603,6 +1773,12 @@ def main(argv=None):
         for k in ("hash_encode_fwd", "scatter_add"):
             results[k]["launches_by_path"]["data_parallel"] = [c[k] for c in dp_counts]
         print(f"phase parallel wall {time.perf_counter() - t0:.2f} s", flush=True)
+    if args.end_frame is None or args.end_frame > 10:
+        t0 = time.perf_counter()
+        for path, by_rank in run_composed().items():
+            for k in ("hash_encode_fwd", "scatter_add"):
+                results[k]["launches_by_path"][path] = [c[k] for c in by_rank]
+        print(f"phase composed wall {time.perf_counter() - t0:.2f} s", flush=True)
     imported = sorted(m for m in sys.modules if m in ("jax", "dnsjax", "matplotlib")
                       or m.startswith(("jax.", "jaxlib", "dnsjax.", "_dnsjax_mesh_",
                                        "matplotlib.")))

@@ -14,6 +14,15 @@ NCCL. ``--ranks R`` starts R ranks explicitly (at most N): each on a card
 of its own over NCCL when there are R cards, else all on ``--device``
 over gloo (several ranks on one card, or on the CPU). Rank 0 alone writes
 to ``--output``.
+
+The composed operating point (``tpu.map_device: M`` >= 1 or ``tpu.map_dp:
+D`` > 1: the keystep on the ranks ``[M, M + D)``, the tracker on rank 0,
+``tpu.mesh_async`` the extraction beside them; under ``tpu.data_parallel``
+``map_device`` alone starts no rank of its own) always runs over ranks: this
+command starts ``max(M + D, 2)`` of them (``--ranks`` may name that count
+or more; a rank past the keystep's idles), on cards of their own over NCCL
+when there are that many, else on ``--device`` over gloo. Rank 0 writes the
+logs, panels and checkpoints, the keystep's first rank the meshes.
 """
 
 from __future__ import annotations
@@ -94,7 +103,8 @@ def main(argv=None):
                              "(model.npz if present, else the highest model_N.npz)")
     parser.add_argument("--ranks", type=int, default=None,
                         help="processes of a tpu.data_parallel run (default: min(N, cards) "
-                             "with more than one card, else 1); see the module docstring")
+                             "with more than one card, else 1) or of the composed point "
+                             "(default max(map_device + map_dp, 2)); see the module docstring")
     args = parser.parse_args(argv)
     ranks = _ranks(args)
     if ranks > 1:
@@ -120,16 +130,40 @@ def main(argv=None):
     return slam
 
 
+def composed_ranks(cfg) -> int:
+    """The ranks the composed operating point asks for:
+    ``max(map_device + map_dp, 2)`` when ``tpu.map_device`` >= 1 or
+    ``tpu.map_dp`` > 1, else 0 (not composed). Under ``tpu.data_parallel``
+    a ``map_device`` alone names no rank of its own (the data-parallel ranks
+    run the keystep), so that count decides."""
+    tpu = cfg.get("tpu") or {}
+    first, map_dp = int(tpu.get("map_device", 0)), int(tpu.get("map_dp", 1))
+    if (first < 1 or int(tpu.get("data_parallel", 1)) > 1) and map_dp < 2:
+        return 0
+    return max(first + map_dp, 2)
+
+
 def _ranks(args) -> int:
-    """The ranks this command starts: ``--ranks``, else min(data_parallel,
-    cards) on a host with more than one card, else 1 (and 1 inside a rank)."""
+    """The ranks this command starts: the composed point's (``--ranks`` may
+    name more), else ``--ranks``, else min(data_parallel, cards) on a host
+    with more than one card, else 1 (and 1 inside a rank)."""
     import torch
     import torch.distributed as dist
+
+    from dnsjax_torch.slam.driver import check_supported
 
     if dist.is_initialized():
         return 1
     cfg = load_run_config(args.config, args.seed, args.set, args.input)
     n_dp = int((cfg.get("tpu") or {}).get("data_parallel", 1))
+    need = composed_ranks(cfg)
+    if need:
+        ranks = need if args.ranks is None else args.ranks
+        if ranks < need:
+            raise SystemExit(f"--ranks {ranks}: the composed point needs {need} ranks "
+                             "(tpu.map_device + tpu.map_dp, at least 2)")
+        check_supported(cfg, ranks)  # map_dp with data_parallel raises here
+        return ranks
     if args.ranks is not None:
         if not 1 <= args.ranks <= max(n_dp, 1):
             raise SystemExit(f"--ranks {args.ranks}: needs 1 <= ranks <= tpu.data_parallel "
@@ -167,7 +201,8 @@ def _spawn_ranks(args, ranks: int, argv):
 
 
 def _rank_run(rank, device, argv):
-    """One rank of a data-parallel run: this command on ``device``."""
+    """One rank of a data-parallel or composed run: this command on
+    ``device``."""
     main(list(argv) + ["--device", str(device)])
 
 

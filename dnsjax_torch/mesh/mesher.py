@@ -620,20 +620,22 @@ class Mesher:
         return faces[np.isin(lab[faces[:, 0]], keep_comp)]
 
     # ------------------------------------------------------------------
-    def save_mesh(self, driver, idx: int, write: bool = True) -> None:
-        """Driver hook: extract and write ``mesh_{idx}.ply`` (and the
-        semantic and per-class variants); ``write`` False extracts only (a
-        rank other than the first under a ray mesh)."""
-        mesh = self.extract(driver.params, driver.enc_params, driver.keyframes,
-                            getattr(driver, "class_colors", None),
-                            all_poses=driver.estimate_c2w[: idx + 1],
-                            kf_feats=driver.collect_kf_feats())
+    def save_mesh(self, idx: int, out_dir: str, params, enc_params, keyframes, *,
+                  class_colors: Optional[np.ndarray] = None,
+                  all_poses: Optional[np.ndarray] = None, kf_feats=None,
+                  write: bool = True) -> Optional[str]:
+        """Driver hook: ``extract`` and write ``<out_dir>/mesh_{idx}.ply``
+        (and the semantic and per-class variants); returns the path written,
+        or None. ``write`` False extracts only (every rank of a ray mesh but
+        the one that writes)."""
+        mesh = self.extract(params, enc_params, keyframes, class_colors, all_poses=all_poses,
+                            kf_feats=kf_feats)
         if not write:
-            return
+            return None
         if mesh["faces"].shape[0] == 0:
             print(f"mesh_{idx}: empty")
-            return
-        write_mesh(driver.out_dir, idx, mesh, self.color, self.label, self.element)
+            return None
+        return write_mesh(out_dir, idx, mesh, self.color, self.label, self.element)
 
 
 def write_mesh(out_dir: str, idx: int, mesh, color: bool = True, label: bool = True,

@@ -89,13 +89,13 @@ def get_encoder(
     log2_hashmap_size: int = 19,
     desired_resolution: int = 512,
     generator: Optional[torch.Generator] = None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[Callable, int, dict]:
     """The reference's encoder factory, dispatching as dnsjax's does.
     Returns (encode_fn, out_dim, params): params is {} for parameter-free
-    encodings, {'table': (L, T, F) tensor on ``device``} for grids, drawn
-    from ``generator`` (default: a CPU generator seeded 0); encode_fn takes
-    (params, pts).
+    encodings, {'table': (L, T, F) tensor on ``device``} for grids (default
+    the card; ``device="cpu"`` for the CPU), drawn from ``generator``
+    (default: a CPU generator seeded 0); encode_fn takes (params, pts).
     """
     e = encoding.lower()
     if generator is None:

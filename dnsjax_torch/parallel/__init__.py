@@ -1,4 +1,10 @@
-from dnsjax_torch.parallel.mesh import RayMesh, make_map_fn_dp, ray_mesh  # noqa: F401
+from dnsjax_torch.parallel.mesh import (  # noqa: F401
+    RankLink,
+    RayMesh,
+    make_map_fn_dp,
+    rank_link,
+    ray_mesh,
+)
 from dnsjax_torch.parallel.tp import (  # noqa: F401
     DpTpMesh,
     dp_tp_mesh,

@@ -41,13 +41,37 @@ differ between ranks, from a generator seeded from the seed and the rank;
 every other draw and host decision is the same on every rank, and so are
 the map and the poses. The first rank alone writes files and logs.
 
-Config values the port does not implement raise ``NotImplementedError``
-naming their ROADMAP.md item, rather than silently running something else.
+The composed operating point (dnsjax's "pod" point: ``tpu.map_device``,
+``tpu.map_dp``, ``tpu.mesh_async``) gives the ranks roles. Rank 0 tracks,
+writes the logs, panels and checkpoints, and holds the tracker's copy of the
+map; the keystep runs on the ranks ``[first, first + map_dp)``
+(``keystep_ranks``: ``first`` is ``tpu.map_device``, 0 co-locating shard 0
+with the tracker), each drawing ``max(1, n_pixels // map_dp)`` rays an
+iteration from a generator seeded from the seed, the frame and its shard
+(dnsjax's strong scaling), in a worker thread so that the rank's main thread
+stays free for the loop's collectives; a rank in neither role idles. Every
+active rank runs the same frame loop and host decisions, so each collective
+meets its peers in the same order: at each dispatch rank 0 broadcasts the
+poses it tracked since the last one (keyframe insertion reads them after
+that), and at each finish the keystep's first rank broadcasts the map, the
+refined pose, the keyframe poses, the decoder counts, the loss terms and its
+log events to rank 0 (dnsjax's ``_finish_map`` with ``_from_map_device``).
+With ``tpu.mesh_async`` the keystep ranks extract each mesh in a background
+thread from a copy of the map, the keyframes and the poses taken after the
+finish, the query sharded over them in a group of its own, and the first of
+them writes the files; without it they extract in the loop. Under
+``tpu.data_parallel`` a ``tpu.map_device`` names no role (dnsjax runs the
+data-parallel keystep there and only stages its inputs on that device), but
+as in dnsjax it is the spare device that lets ``tpu.mesh_async`` extract
+beside the loop: every rank then queries its share from a copy in a
+background thread, over a group of its own, and rank 0 writes. One process
+without a group refuses a setting that names a device it does not have.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import threading
@@ -70,7 +94,7 @@ from dnsjax_torch.models.decoder import (
     param_leaves,
 )
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
-from dnsjax_torch.parallel.mesh import make_map_fn_dp, ray_mesh
+from dnsjax_torch.parallel.mesh import make_map_fn_dp, rank_link, ray_mesh
 from dnsjax_torch.slam.keyframes import KeyframeStore
 from dnsjax_torch.slam.mapper import (
     MapConfig,
@@ -80,9 +104,6 @@ from dnsjax_torch.slam.mapper import (
 )
 from dnsjax_torch.slam.sampling import class_sorted_pixels
 from dnsjax_torch.slam.tracker import TrackConfig, Tracker, pose_init_const_velocity
-
-_ROADMAP = "ROADMAP.md, Queue 1: remaining items"
-
 
 def load_bound(cfg: Dict[str, Any]) -> np.ndarray:
     """Scene bound, scaled and enlarged so each extent divides
@@ -108,20 +129,49 @@ def map_device_index(index: int, n_devices: int) -> Optional[int]:
     return index if 0 < index < n_devices else None
 
 
+def dp_devices(cfg: Dict[str, Any], n_devices: int) -> int:
+    """dnsjax's ``dp_devices``: ``min(tpu.data_parallel, devices)``."""
+    return min(int((cfg.get("tpu", {}) or {}).get("data_parallel", 1)), n_devices)
+
+
+def keystep_ranks(cfg: Dict[str, Any], n_devices: int) -> Optional[List[int]]:
+    """The devices (ranks) of the composed operating point's keystep, or
+    None when it runs where the tracker does. ``tpu.map_dp`` > 1: dnsjax's
+    ``ray_mesh(map_dp, first=map_device)``; else the ``map_device_index``
+    rule, except under data parallelism over more than one device, where
+    dnsjax runs the data-parallel keystep over the tracker's devices and
+    ``map_device`` only stages its inputs. Raises ValueError when the range
+    leaves the ``n_devices`` devices."""
+    tpu = cfg.get("tpu", {}) or {}
+    map_dp, index = int(tpu.get("map_dp", 1)), int(tpu.get("map_device", 0))
+    if map_dp <= 1 and dp_devices(cfg, n_devices) > 1:
+        return None
+    first = index if map_dp > 1 else map_device_index(index, n_devices)
+    if first is None:
+        return None
+    if first < 0 or first + map_dp > n_devices:
+        raise ValueError(f"tpu.map_dp={map_dp} from tpu.map_device={index}: need devices "
+                         f"[{first}, {first + map_dp}) but only {n_devices} exist (one rank a "
+                         f"device: start {first + map_dp} ranks, as cli/run.py does)")
+    return list(range(first, first + map_dp))
+
+
+def strong_scaling(cfg, map_dp: int):
+    """The keystep's config on each of ``map_dp`` shards: dnsjax's fixed
+    total ray budget, ``max(1, n_pixels // map_dp)`` rays a shard."""
+    return dataclasses.replace(cfg, n_pixels=max(1, cfg.n_pixels // map_dp))
+
+
 def check_supported(cfg: Dict[str, Any], n_devices: int = 1) -> None:
-    """Raise NotImplementedError for every config value outside the port
-    (``n_devices``: the devices ``tpu.map_device`` may name)."""
+    """Raise ValueError for a config the driver cannot run on ``n_devices``
+    devices (the devices ``tpu.map_device`` and ``tpu.map_dp`` may name)."""
     tpu = cfg.get("tpu", {}) or {}
     mp = cfg["mapping"]
-    map_dev = map_device_index(int(tpu.get("map_device", 0)), n_devices)
-    unsupported = [
-        (map_dev is not None, f"tpu.map_device: {map_dev} (a second device)", 9),
-        (int(tpu.get("map_dp", 1)) > 1, "tpu.map_dp > 1", 9),
-        (bool(tpu.get("mesh_async", False)), "tpu.mesh_async", 9),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP}, {item})")
+    if int(tpu.get("map_dp", 1)) > 1 and dp_devices(cfg, n_devices) > 1:
+        raise ValueError("tpu.map_dp (keystep DP over non-tracker chips) and "
+                         "tpu.data_parallel (whole-pipeline DP) are mutually exclusive "
+                         "- pick one scale-out axis")
+    keystep_ranks(cfg, n_devices)
     if int(mp["n_refer_frames"]) != 2:
         raise ValueError(
             f"mapping.n_refer_frames={mp['n_refer_frames']} unsupported; "
@@ -137,7 +187,18 @@ class DNSSLAM:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda requested but torch.cuda.is_available() is false")
-        check_supported(cfg, torch.cuda.device_count() if self.device.type == "cuda" else 1)
+        # the devices: the ranks of the process group, or without one the cards
+        grouped = dist.is_initialized()
+        world = dist.get_world_size() if grouped else 1
+        n_devices = world if grouped else (
+            torch.cuda.device_count() if self.device.type == "cuda" else 1)
+        check_supported(cfg, n_devices)
+        self.keystep_ranks = keystep_ranks(cfg, n_devices)
+        if self.keystep_ranks is not None and not grouped:
+            raise ValueError(
+                f"the keystep on devices {self.keystep_ranks} of its own (tpu.map_device / "
+                f"tpu.map_dp) needs one rank a device: start {self.keystep_ranks[-1] + 1} "
+                "ranks (python -m dnsjax_torch.cli.run does), not one process")
         # float32 matmuls and convolutions stay full float32 (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -160,16 +221,30 @@ class DNSSLAM:
         tpu = cfg.get("tpu", {}) or {}
         # tpu.data_parallel over the ranks of the process group, dnsjax's
         # dp_devices = min(data_parallel, devices)
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        self.dp_devices = min(int(tpu.get("data_parallel", 1)), world)
+        self.dp_devices = dp_devices(cfg, world)
         self.mesh = None
-        if world != self.dp_devices:
+        if world != self.dp_devices and self.keystep_ranks is None:
             raise ValueError(f"tpu.data_parallel={tpu.get('data_parallel', 1)} but the process "
                              f"group has {world} ranks: start one rank a device")
         if self.dp_devices > 1:
             self.mesh = ray_mesh(device=self.device)
-        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.rank = dist.get_rank() if grouped else 0
         self.writes = self.rank == 0  # the first rank alone writes files and logs
+        # the composed point's roles (every rank builds every group, in order)
+        self.composed = self.keystep_ranks is not None
+        self.tracks = self.rank == 0 or not self.composed
+        self.maps = not self.composed or self.rank in self.keystep_ranks
+        self.shard = self.keystep_ranks.index(self.rank) if self.composed and self.maps else 0
+        self.map_dp = int(tpu.get("map_dp", 1))
+        self.link, composed_meshes = None, (None, None)
+        if self.composed:
+            self.link = rank_link(self.keystep_ranks)
+            # dnsjax's map_mesh twice, the keystep's group and the extraction
+            # thread's; none for one shard
+            composed_meshes = tuple(
+                m if m is not None and m.size > 1 else None
+                for m in (ray_mesh(self.map_dp, self.keystep_ranks[0], device=self.device)
+                          for _ in range(2)))
         self.compute_dtype = (
             torch.bfloat16 if tpu.get("compute_dtype", "bfloat16") == "bfloat16"
             else torch.float32
@@ -177,8 +252,8 @@ class DNSSLAM:
         self.fix_refer_bug = bool(tpu.get("fix_refer_frame_bug", True))
         feature_taps = int(tpu.get("feature_taps", 4))
 
-        if self.writes:
-            os.makedirs(self.out_dir, exist_ok=True)
+        if self.writes or (self.composed and self.maps and self.shard == 0):
+            os.makedirs(self.out_dir, exist_ok=True)  # composed: the mesh writer too
         seed = self.seed = int(cfg.get("seed", 0))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         # the tracker's and the keystep's rays: one generator per rank under
@@ -218,6 +293,9 @@ class DNSSLAM:
             smooth_every=int(trn.get("smooth_every", 1)),
             opacity_sigma=float(trn["opacity_sigma"]), feature_taps=feature_taps,
         )
+        # the keystep's config on a shard: strong scaling over map_dp shards
+        self.keystep_cfg = strong_scaling(self.map_cfg, self.map_dp) if self.composed \
+            else self.map_cfg
         self.tracker = Tracker(self.spec, self.track_cfg, self.compute_dtype, mesh=self.mesh)
         self.decoder_init_fn = make_decoder_init_fn(self.spec, self.map_cfg,
                                                     compute_dtype=self.compute_dtype)
@@ -247,6 +325,18 @@ class DNSSLAM:
         # an asynchronous keystep's collectives run in its own thread, so in
         # a process group of their own (every rank creates it here)
         self._map_mesh = self.mesh.another() if self.mesh and self.async_map else self.mesh
+        if self.composed:
+            self._map_mesh = composed_meshes[0]
+        # the extraction beside the loop needs a spare device: the keystep's
+        # own, or under data parallelism dnsjax's map_device (there it only
+        # stages the keystep's inputs and the mesh's)
+        self.mesh_async = bool(tpu.get("mesh_async", False)) and (
+            self.composed or (self.mesh is not None and map_device_index(
+                int(tpu.get("map_device", 0)), n_devices) is not None))
+        self._mesh_thread: Optional[threading.Thread] = None
+        self._mesh_errors: List[str] = []
+        self.mesh_files: List[str] = []  # the mesh files this rank wrote
+        self._shared_upto = 0  # the frames whose poses every rank of the link holds
 
         self.estimate_c2w = np.tile(np.eye(4, dtype=np.float32), (self.n_img, 1, 1))
         self.gt_c2w = np.tile(np.eye(4, dtype=np.float32), (self.n_img, 1, 1))
@@ -273,13 +363,28 @@ class DNSSLAM:
         self.class_colors = class_palette(self.n_class)
         self.mesher = None
         if self.mesh_every > 0 and "meshing" in cfg:
+            # composed: the query sharded over the keystep's ranks (dnsjax's
+            # map_mesh), in a group of its own for the extraction's thread;
+            # data-parallel, over the ranks, in another group when it runs
+            # beside the loop
+            device_mesh = composed_meshes[1] if self.composed else (
+                self.mesh.another() if self.mesh_async else self.mesh)
             self.mesher = Mesher(cfg, cam, self.bound_np, self.spec, self.compute_dtype,
-                                 device_mesh=self.mesh)
+                                 device_mesh=device_mesh)
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _clone(t):
+        """A detached copy of a tensor, or of a dict or list of them."""
+        if isinstance(t, torch.Tensor):
+            return t.detach().clone()
+        if isinstance(t, dict):
+            return {k: DNSSLAM._clone(v) for k, v in t.items()}
+        return [DNSSLAM._clone(v) for v in t]
 
     def _snapshot(self):
         """The tracker's map after a finish: the map itself, or under
@@ -287,15 +392,7 @@ class DNSSLAM:
         while the tracker reads."""
         if not self.async_map:
             return self.params
-
-        def clone(t):
-            if isinstance(t, torch.Tensor):
-                return t.detach().clone()
-            if isinstance(t, dict):
-                return {k: clone(v) for k, v in t.items()}
-            return [clone(v) for v in t]
-
-        return clone(self.params)
+        return self._clone(self.params)
 
     def _encode(self, images: torch.Tensor) -> torch.Tensor:
         return encode_images(self.enc_params, images, self.compute_dtype)
@@ -460,16 +557,25 @@ class DNSSLAM:
         return new_list
 
     def _map_fn(self, n_target: int, n_iters: int, mesh=None):
-        # one keystep program a group: the main thread's and the worker's
+        # one keystep program a group: the main thread's and the worker's;
+        # composed, each shard draws keystep_cfg's share of the rays
         k = (n_target, n_iters, None if mesh is None else id(mesh))
         if k not in self._map_fns:
             if mesh is None:
-                self._map_fns[k] = make_map_fn(self.spec, self.map_cfg, n_target, n_iters,
+                self._map_fns[k] = make_map_fn(self.spec, self.keystep_cfg, n_target, n_iters,
                                                self.compute_dtype)
             else:
-                self._map_fns[k] = make_map_fn_dp(self.spec, self.map_cfg, n_target, n_iters,
-                                                  mesh, self.compute_dtype)
+                self._map_fns[k] = make_map_fn_dp(self.spec, self.keystep_cfg, n_target,
+                                                  n_iters, mesh, self.compute_dtype)
         return self._map_fns[k]
+
+    def _keystep_mesh(self):
+        """The keystep's mesh: composed, the keystep ranks' (in whichever
+        thread); else the worker's group in the worker, the ranks' mesh
+        elsewhere."""
+        if self.composed or self._in_worker():
+            return self._map_mesh
+        return self.mesh
 
     def map_once(self, idx: int, cur, n_iters: int, mode: str, is_first: bool,
                  cur_c2w: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None,
@@ -500,7 +606,7 @@ class DNSSLAM:
         if new_decoders:
             window["lt_gate_iter"] = n_iters // 2
 
-        mesh = self._map_mesh if self._in_worker() else self.mesh
+        mesh = self._keystep_mesh()
         quads, Ts, aux = self._map_fn(len(slots), n_iters, mesh)(
             self.params, quads0, Ts0, window, ray_gen
         )
@@ -526,7 +632,7 @@ class DNSSLAM:
                  "c2w": c2w, "bound": self.bound, "sorted_idx": srt, "offsets": off,
                  "feats": cur_feats[None]}
         losses = self.decoder_init_fn(self.params, frame, mask, self.gen if gen is None else gen)
-        mesh = self._map_mesh if self._in_worker() else self.mesh
+        mesh = self._keystep_mesh()
         if mesh is not None:
             # every rank ran the same warm-up; the card's float atomics may
             # order its sums differently, so the first rank's map is kept
@@ -539,8 +645,19 @@ class DNSSLAM:
     def _keystep(self, idx: int, cur) -> None:
         """Dispatch one keystep (two outer mapping calls: overlap, then
         global windows) and record it as pending; without ``async_map`` it
-        runs here and finishes at once."""
+        runs here and finishes at once. Composed, rank 0's poses reach the
+        link first and the keystep ranks run it in their worker thread."""
         t0 = time.perf_counter()
+        if self.composed:
+            self._share_poses(idx)
+            if self.maps:
+                self._dispatch_keystep(idx, cur, t0)
+            else:  # rank 0 alone: the keystep's first rank sends it at the finish
+                self._pending_map = dict(idx=idx, is_ba=idx >= self.start_optimize_idx,
+                                         t_dispatch=time.perf_counter() - t0)
+            if not self.async_map:
+                self._finish_map()
+            return
         if self.async_map:
             self._dispatch_keystep(idx, cur, t0)
             return
@@ -573,9 +690,7 @@ class DNSSLAM:
         from the run's seed and the frame, the current pose and the
         keyframe count as they stand, and an event after the default
         stream's work so far, which the keystep's stream waits for."""
-        gen = torch.Generator(device=self.device).manual_seed(_seed_of(self.seed, idx))
-        ray_gen = None if self.mesh is None else torch.Generator(
-            device=self.device).manual_seed(_seed_of(self.seed, idx, self.rank))
+        gen, ray_gen = self._keystep_gens(idx)
         cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
         ready = None
         if self.device.type == "cuda":
@@ -592,6 +707,54 @@ class DNSSLAM:
         self._pending_map = dict(idx=idx, future=future, cur=cur, cur_c2w0=cur_c2w,
                                  is_ba=idx >= self.start_optimize_idx,
                                  t_dispatch=time.perf_counter() - t0)
+
+    def _keystep_gens(self, idx: int):
+        """The generators of the keystep dispatched at frame ``idx``: one
+        seeded from the seed and the frame, and the rays' (None: the same
+        one); under data_parallel the rays' also from the rank, composed
+        from the shard, so that a shard draws alike wherever it runs."""
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(_seed_of(self.seed, idx))
+        ray_gen = None
+        if self.composed:
+            ray_gen = torch.Generator(device=dev).manual_seed(
+                _seed_of(self.seed, idx, self.shard))
+        elif self.mesh is not None:
+            ray_gen = torch.Generator(device=dev).manual_seed(
+                _seed_of(self.seed, idx, self.rank))
+        return gen, ray_gen
+
+    def _share_poses(self, idx: int) -> None:
+        """Composed: the poses rank 0 holds for the frames since the last
+        dispatch, through ``idx``, on every rank of the link."""
+        a = self._shared_upto + 1
+        rows = self.link.broadcast_object(
+            self.estimate_c2w[a:idx + 1] if self.rank == 0 else None, src=0)
+        self.estimate_c2w[a:idx + 1] = rows
+        self._shared_upto = idx
+
+    def _share_map(self, losses=None, cur_c2w=None, events=None):
+        """Composed: the keystep's first rank's map, keyframe poses, refined
+        current pose, decoder counts, loss terms and log events on every rank
+        of the link (dnsjax's ``_finish_map`` with ``_from_map_device``);
+        returns (losses, refined pose, events) as that rank holds them. With
+        rank 0 the first keystep rank, nothing moves."""
+        src = self.keystep_ranks[0]
+        if src == 0:
+            return losses, cur_c2w, events
+        pose = torch.zeros((4, 4), device=self.device) if cur_c2w is None else cur_c2w.clone()
+        self.link.broadcast_(param_leaves(self.params)
+                             + [self.keyframes.est_c2w[:self.keyframes.count], pose], src)
+        host = self.link.broadcast_object(
+            dict(losses=losses, events=events, exist_decoders=list(self.exist_decoders.items()))
+            if self.rank == src else None, src)
+        if self.rank != src:
+            self.exist_decoders = dict(host["exist_decoders"])
+            if not self.maps:  # the keystep ranks warmed their decoders up themselves
+                self.decoder_inits += [dict(frame=e["frame"], classes=e["classes"])
+                                       for e in host["events"] or []
+                                       if e.get("event") == "decoder_init"]
+        return host["losses"], pose, host["events"]
 
     def _keystep_worker(self, idx: int, cur, cur_c2w, n_kf: int, gen, ready, ray_gen=None):
         """The keystep in the worker thread, on the keystep's stream: both
@@ -622,19 +785,23 @@ class DNSSLAM:
         self._pending_map = None
         t0 = time.perf_counter()
         idx = p["idx"]
+        losses = cur_c2w = events = None  # composed rank 0 alone: from the share below
         if "future" in p:
             losses, cur_c2w, events = p["future"].result()
             if self._map_stream is not None:
                 torch.cuda.current_stream(self.device).wait_stream(self._map_stream)
-        else:
+        elif "aux" in p:
             cur_c2w, events = p["cur_c2w"], []
             losses = self._losses(p["aux"])
             self._sync()
+        if self.composed:
+            losses, cur_c2w, events = self._share_map(losses, cur_c2w, events)
         if p["is_ba"]:
             self.estimate_c2w[idx] = cur_c2w.cpu().numpy()
             if idx in self.keyframes.frame_ids:
                 self.keyframes.update_pose(self.keyframes.frame_ids.index(idx), cur_c2w)
-        self._track_params = self._snapshot()
+        if self.tracks:
+            self._track_params = self._snapshot()
         t_block = time.perf_counter() - t0
         t_dispatch = p["t_dispatch"]
         self.map_times.append(t_dispatch + t_block)
@@ -692,6 +859,8 @@ class DNSSLAM:
         from dnsjax_torch.render.full import make_full_renderer
         from dnsjax_torch.viz.panels import residual_panel
 
+        if not self.tracks:
+            return  # composed: rank 0 renders the panel
         t0 = time.perf_counter()
         if self._full_renderer is None:
             ds = self.dataset
@@ -717,9 +886,62 @@ class DNSSLAM:
         self.vis_times.append(time.perf_counter() - t0)
 
     def save_mesh(self, idx: int) -> None:
+        """Extract and write ``mesh_{idx}.ply``. Composed, the keystep ranks
+        extract (their first writes) and rank 0 alone does nothing; under
+        ``mesh_async`` in a background thread from ``_mesh_state``'s copy."""
+        if not self.maps:
+            return
         t0 = time.perf_counter()
-        self.mesher.save_mesh(self, idx, write=self.writes)
+        write = self.shard == 0 if self.composed else self.writes
+        if self.mesh_async:
+            self._join_mesh()
+            state = self._mesh_state(idx, copy=True)
+
+            def work():  # an error waits for _join_mesh to report it, as dnsjax's
+                try:
+                    self._mesh_work(state, idx, write)
+                except Exception as e:  # noqa: BLE001
+                    self._mesh_errors.append(repr(e))
+
+            self._mesh_thread = threading.Thread(target=work, name="mesh", daemon=True)
+            self._mesh_thread.start()
+        else:
+            self._mesh_work(self._mesh_state(idx), idx, write)
         self.mesh_times.append(time.perf_counter() - t0)
+
+    def _mesh_state(self, idx: int, copy: bool = False) -> Dict[str, Any]:
+        """``Mesher.save_mesh``'s map, keyframes, poses through ``idx`` and
+        the keyframes' encoder maps (stacked here, a new tensor). ``copy``:
+        a copy of each, for a background extraction, since the next keystep
+        updates the map and the poses in place and an eviction moves the
+        slots (dnsjax's arrays are immutable, so it takes references)."""
+        state = dict(params=self.params, keyframes=self.keyframes,
+                     all_poses=self.estimate_c2w[: idx + 1], kf_feats=self.collect_kf_feats())
+        if copy:
+            state.update(params=self._clone(self.params), keyframes=self.keyframes.snapshot(),
+                         all_poses=state["all_poses"].copy())
+        return state
+
+    def _mesh_work(self, state: Dict[str, Any], idx: int, write: bool) -> None:
+        """``Mesher.save_mesh`` of ``state`` on this rank's card, recording
+        the file written."""
+        ctx = torch.cuda.device(self.device) if self.device.type == "cuda" \
+            else contextlib.nullcontext()
+        with ctx:
+            path = self.mesher.save_mesh(idx, self.out_dir, enc_params=self.enc_params,
+                                         class_colors=self.class_colors, write=write, **state)
+        if path is not None:
+            self.mesh_files.append(path)
+
+    def _join_mesh(self) -> None:
+        """Wait for the background extraction in flight (at most one)."""
+        t = self._mesh_thread
+        if t is not None:
+            t.join()
+            self._mesh_thread = None
+            if self._mesh_errors:
+                print(f"WARNING: async mesh extraction failed: {self._mesh_errors[-1]}",
+                      flush=True)
 
     # ------------------------------------------------------------------
     def _track_once(self, feats, cur, c2w0: np.ndarray):
@@ -846,8 +1068,15 @@ class DNSSLAM:
             self.estimate_c2w[1] = f1["c2w"]
 
         t0 = time.perf_counter()
-        aux0, _ = self.map_once(0, f0, self.n_iters_first, "overlap", is_first=True)
-        float(aux0["p_loss"])
+        if self.maps:
+            # composed, the keystep ranks bootstrap on generators of their own,
+            # so the tracker's draws do not depend on where the keystep runs
+            gen, ray_gen = self._keystep_gens(0) if self.composed else (None, None)
+            aux0, _ = self.map_once(0, f0, self.n_iters_first, "overlap", is_first=True,
+                                    gen=gen, ray_gen=ray_gen)
+            float(aux0["p_loss"])
+        if self.composed:
+            self._share_map()
         self._sync()
         self._track_params = self._snapshot()
         self.map_times.append(time.perf_counter() - t0)
@@ -864,16 +1093,23 @@ class DNSSLAM:
         keystep finishes before the next keystep, before the panel, the
         mesh, a checkpoint and an eviction, and at the end, as in dnsjax."""
         n = self.n_img if end_frame is None else min(end_frame, self.n_img)
+        if not (self.tracks or self.maps):
+            return self.estimate_c2w[:n], self.gt_c2w[:n]  # composed: a rank in no role
         if start_frame == 0:
             self._bootstrap(n)
             start = 1
         else:
             start = start_frame
-            self._pre_color = self._frame_to_device(self.dataset[start - 1])["color"]
+            self._shared_upto = start - 1
+            if self.tracks:
+                self._pre_color = self._frame_to_device(self.dataset[start - 1])["color"]
 
         last_mapped = start - 1
         try:
             for idx in range(start, n):
+                maps_now = self._should_map(idx, last_mapped, n)
+                if not (self.tracks or maps_now):
+                    continue  # a keystep rank reads only the frames it maps
                 cur = self._frame_to_device(self.dataset[idx])
                 self.gt_c2w[idx] = cur["host"]["c2w"]
                 if idx <= 1 or self.use_gt_camera:
@@ -884,10 +1120,10 @@ class DNSSLAM:
                             device=self.device,
                         )
                         self._refer_color = cur["color"]
-                else:
+                elif self.tracks:
                     self.track_frame(idx, cur)
 
-                if self._should_map(idx, last_mapped, n):
+                if maps_now:
                     self._finish_map()
                     self._keystep(idx, cur)
                     last_mapped = idx
@@ -911,6 +1147,7 @@ class DNSSLAM:
         finally:
             self._release_worker()
 
+        self._join_mesh()
         self.save_checkpoint("model.npz", n - 1)
         if self.verbose and self.writes:
             print(f"Decoder params: {decoder_param_count(self.params)}")

@@ -14,6 +14,9 @@ import torch
 from dnsjax_torch.slam.sampling import class_sorted_pixels
 
 
+_ARRAYS = ("colors", "depths", "labels", "gt_c2w", "est_c2w", "sorted_idx", "class_offsets")
+
+
 class KeyframeStore:
     def __init__(self, capacity: int, H: int, W: int, n_class: int, device="cpu"):
         self.capacity = capacity
@@ -62,9 +65,18 @@ class KeyframeStore:
         if not (0 <= slot < self.count):
             raise IndexError(f"evict slot {slot} out of range (count {self.count})")
         K = self.count
-        for name in ("colors", "depths", "labels", "gt_c2w", "est_c2w",
-                     "sorted_idx", "class_offsets"):
+        for name in _ARRAYS:
             arr = getattr(self, name)
             arr[slot:K - 1] = arr[slot + 1:K].clone()
         del self.frame_ids[slot]
         self.count -= 1
+
+    def snapshot(self) -> "KeyframeStore":
+        """A store holding a copy of the filled slots (capacity ``count``),
+        for a reader in another thread while this one goes on changing."""
+        snap = KeyframeStore.__new__(KeyframeStore)
+        snap.capacity, snap.H, snap.W, snap.n_class = self.count, self.H, self.W, self.n_class
+        snap.count, snap.frame_ids, snap.device = self.count, list(self.frame_ids), self.device
+        for name in _ARRAYS:
+            setattr(snap, name, getattr(self, name)[:self.count].clone())
+        return snap

@@ -193,8 +193,8 @@ def test_async_pairs_alternates_and_reads_each_loop_wall(tmp_path):
 def test_map_device_rule_matches_dnsjax(index, tmp_path):
     """dnsjax picks ``jax.devices()[index]`` for 0 < index < n and the
     tracker's device otherwise; the port's rule on the same count agrees, and
-    a second device is item 9's (the composed operating point), so the port
-    refuses it."""
+    a second device puts the keystep on that rank alone (the composed
+    operating point), which the guard accepts."""
     from dnsjax.slam.driver import DNSSLAM as JaxSLAM
 
     cfg = _cfg(f"tpu.map_device={index}")
@@ -205,8 +205,8 @@ def test_map_device_rule_matches_dnsjax(index, tmp_path):
     assert (js.map_device is None) == (got is None)
     if got is not None:
         assert js.map_device == jax.devices()[got]
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*9\)"):
-            tdrv.check_supported(cfg, n)
+        assert tdrv.keystep_ranks(cfg, n) == [got]
     else:
-        tdrv.check_supported(cfg, n)
+        assert tdrv.keystep_ranks(cfg, n) is None
+    tdrv.check_supported(cfg, n)
     tdrv.check_supported(cfg)  # one device: the tracker's, always

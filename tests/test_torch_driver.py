@@ -42,11 +42,18 @@ def _cfg(*overrides):
     "tpu.mesh_async=true",
 ])
 def test_unsupported_config_raises(override):
-    """The composed operating point (ROADMAP.md Queue 1, item 9): a keystep
-    on a second device than the tracker's, sharded or not, and the mesher
-    beside them."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1.*, 9\)"):
-        tdrv.check_supported(_cfg(*override.split(",")), n_devices=2)
+    """Each setting of the composed operating point is refused where dnsjax
+    refuses it or the devices are missing: a keystep range past the
+    devices (start more ranks), and ``tpu.map_dp`` beside
+    ``tpu.data_parallel`` over 2 devices (dnsjax's "mutually exclusive")."""
+    extra, n, match = {
+        "tpu.map_device=1": (["tpu.map_dp=2"], 2, r"need devices \[1, 3\).*start 3 ranks"),
+        "tpu.map_dp=2": ([], 1, r"need devices \[0, 2\).*start 2 ranks"),
+        "tpu.mesh_async=true": (["tpu.map_dp=2", "tpu.data_parallel=2"], 2,
+                                "mutually exclusive"),
+    }[override]
+    with pytest.raises(ValueError, match=match):
+        tdrv.check_supported(_cfg(override, *extra), n_devices=n)
 
 
 @pytest.mark.parametrize("override,check", [

@@ -59,7 +59,7 @@ def test_dense_grid_matches_with_the_table_carried_across():
     indexed densely, so the encode equals trilinear interpolation of the
     (res+1)^3 lattice; the port's forward ran its plain twin here."""
     fn_j, dim_j, p_j = je.get_encoder("dense", key=jax.random.PRNGKey(5), **DENSE)
-    fn_t, dim_t, p_t = te.get_encoder("dense", **DENSE)
+    fn_t, dim_t, p_t = te.get_encoder("dense", device="cpu", **DENSE)
     assert dim_j == dim_t == 8 and tuple(p_t["table"].shape) == tuple(p_j["table"].shape)
     table = np.asarray(p_j["table"]) * 1e4  # O(1) features
     pts = _pts(n=500, seed=2, lo=-0.05, hi=1.05)  # a margin outside the cube clamps
@@ -77,7 +77,7 @@ def test_dense_grid_matches_with_the_table_carried_across():
 def test_dense_grid_too_large_raises():
     kw = dict(DENSE, log2_hashmap_size=8)  # the 9^3 level does not fit 2^8 rows
     fn_j, _, p_j = je.get_encoder("dense", **kw)
-    fn_t, _, p_t = te.get_encoder("dense", **kw)
+    fn_t, _, p_t = te.get_encoder("dense", device="cpu", **kw)
     pts = _pts(n=4)
     with pytest.raises(ValueError, match="exceeds table"):
         fn_j(p_j, jnp.asarray(pts))
@@ -97,7 +97,8 @@ def test_get_encoder_dispatch_matches(name, dim):
     if name == "DenseGrid":
         kw = dict(log2_hashmap_size=14, desired_resolution=20)
     fn_j, dim_j, p_j = je.get_encoder(name, key=jax.random.PRNGKey(3), **kw)
-    fn_t, dim_t, p_t = te.get_encoder(name, generator=torch.Generator().manual_seed(3), **kw)
+    fn_t, dim_t, p_t = te.get_encoder(name, generator=torch.Generator().manual_seed(3),
+                                    device="cpu", **kw)
     assert dim_j == dim_t == dim and set(p_t) == set(p_j)
     pts = _dirs() if name == "SphericalHarmonics" else _pts()
     p_t = {k: torch.tensor(np.asarray(v)) for k, v in p_j.items()}  # dnsjax's draw
@@ -112,13 +113,28 @@ def test_get_encoder_table_init_and_errors():
     +-1e-4, as dnsjax's init), on the device asked for; an unknown name
     raises as in dnsjax."""
     _, _, p1 = te.get_encoder("hash", log2_hashmap_size=10,
-                              generator=torch.Generator().manual_seed(7))
+                              generator=torch.Generator().manual_seed(7), device="cpu")
     _, _, p2 = te.get_encoder("hash", log2_hashmap_size=10,
-                              generator=torch.Generator().manual_seed(7))
+                              generator=torch.Generator().manual_seed(7), device="cpu")
     t = p1["table"]
     assert torch.equal(t, p2["table"]) and t.shape == (16, 1024, 2) and t.device.type == "cpu"
     assert float(t.abs().max()) <= 1e-4 and float(t.std()) > 1e-5
     with pytest.raises(ValueError, match="unknown encoding"):
         je.get_encoder("nope")
     with pytest.raises(ValueError, match="unknown encoding"):
-        te.get_encoder("nope")
+        te.get_encoder("nope", device="cpu")
+
+
+def test_get_encoder_defaults_to_the_card():
+    """The factory puts a grid's table on the card unless the caller asks
+    for the CPU: on a host without one, the default raises rather than
+    falling back; parameter-free encodings hold no tensor and build
+    anywhere."""
+    import inspect
+
+    assert inspect.signature(te.get_encoder).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default succeeds there")
+    with pytest.raises((AssertionError, RuntimeError)):
+        te.get_encoder("hash", log2_hashmap_size=10)
+    assert te.get_encoder("Frequency")[2] == {}

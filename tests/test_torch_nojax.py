@@ -96,7 +96,8 @@ from dnsjax_torch.eval.mesh_metrics import depth_l1_virtual_views, mesh_metrics
 from dnsjax_torch.mesh.raycast import MeshRaycaster
 from dnsjax_torch.ops.encodings import get_encoder
 from dnsjax_torch.viz.ate_plot import write_ate_plot
-enc, dim, p = get_encoder("dense", base_resolution=4, desired_resolution=8, log2_hashmap_size=10)
+enc, dim, p = get_encoder("dense", base_resolution=4, desired_resolution=8, log2_hashmap_size=10,
+                     device="cpu")
 assert enc(p, torch.rand(16, 3)).shape == (16, dim)
 v, f = mesh["vertices"], mesh["faces"]
 assert np.isfinite(mesh_metrics(v, f, v, f, n_samples=2000)["accuracy_cm"])

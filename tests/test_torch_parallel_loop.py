@@ -217,12 +217,16 @@ def dp_driver(tmp_path_factory):
     """``tpu.data_parallel: 2`` through the port's driver on 2 ranks: a GT
     camera run and a tracked run (LM, 5 frames), with the output hooks, and
     a tracked run with asynchronous keysteps (``sync_method: loose``: the
-    keystep's collectives in a worker thread, over a group of their own)."""
+    keystep's collectives in a worker thread, over a group of their own),
+    and the GT camera run again with ``tpu.map_device: 1`` and
+    ``tpu.mesh_async`` (the extraction in a background thread)."""
     out = tmp_path_factory.mktemp("dp_driver")
     runs = [(_driver_cfg("use_gt_camera=true"), 5, str(out / "gt")),
             (_driver_cfg("tracking.lm_iters=2"), 5, str(out / "tracked")),
             (_driver_cfg("tracking.lm_iters=1", "sync_method=loose", "mapping.vis_every=0",
-                         "mapping.mesh_every=0"), 6, str(out / "loose"))]
+                         "mapping.mesh_every=0"), 6, str(out / "loose")),
+            (_driver_cfg("use_gt_camera=true", "tpu.map_device=1", "tpu.mesh_async=true"), 5,
+             str(out / "mesh_async"))]
     return _spawn(torch_ranks.driver, 2, out / "ranks", runs)
 
 
@@ -267,6 +271,28 @@ def test_dp_driver_only_first_rank_writes(dp_driver):
             assert name in files0, (name, files0)
 
 
+def test_dp_driver_map_device_extracts_beside_the_loop(dp_driver):
+    """dnsjax's ``tpu.map_device`` beside ``tpu.data_parallel``: no rank of
+    its own, the spare device that lets ``tpu.mesh_async`` extract in a
+    background thread. The trajectory and the map are the synchronous GT
+    camera run's (atol 1e-5, dnsjax's tolerance for this mode); rank 0
+    wrote each mesh once, byte for byte the synchronous run's; the thread
+    was joined and raised nothing."""
+    sync, (a, b) = dp_driver[0][0], (r[3] for r in dp_driver)
+    assert a["mesh_async"] and b["mesh_async"] and not sync["mesh_async"]
+    np.testing.assert_allclose(a["est"], sync["est"], atol=1e-5)
+    for k, v in sync["params"].items():
+        np.testing.assert_allclose(a["params"][k], v, atol=1e-5, err_msg=k)
+    assert b["mesh_files"] == [] and b["files"] == []
+    names = [os.path.basename(p) for p in a["mesh_files"]]
+    assert names == [os.path.basename(p) for p in sync["mesh_files"]] == ["mesh_3.ply"]
+    for p, q in zip(a["mesh_files"], sync["mesh_files"]):
+        with open(p, "rb") as f, open(q, "rb") as g:
+            assert f.read() == g.read(), p
+    for r in (a, b):
+        assert not r["mesh_errors"] and r["mesh_thread_joined"]
+
+
 @pytest.mark.parametrize("override,what", [
     ("tpu.map_dp=2", "map_dp"),
     ("tpu.mesh_async=true", "mesh_async"),
@@ -274,11 +300,17 @@ def test_dp_driver_only_first_rank_writes(dp_driver):
 ])
 def test_composed_point_still_raises_item_9(override, what):
     """The composed operating point (a keystep on other ranks than the
-    tracker's) is ROADMAP Queue 1 item 9."""
+    tracker's), once refused, is accepted on 2 ranks without
+    ``tpu.data_parallel``, and its roles are dnsjax's devices: ``map_dp``
+    shards the keystep over ranks 0-1, ``map_device`` puts it on rank 1, and
+    ``mesh_async`` alone names no rank (tests/test_torch_composed.py runs
+    them)."""
     from dnsjax_torch.slam import driver as tdrv
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*9\)"):
-        tdrv.check_supported(_driver_cfg(override), n_devices=2)
+    cfg = _driver_cfg(override, "tpu.data_parallel=1")
+    tdrv.check_supported(cfg, n_devices=2)
+    want = {"map_dp": [0, 1], "map_device": [1], "mesh_async": None}[what]
+    assert tdrv.keystep_ranks(cfg, 2) == want
 
 
 def test_data_parallel_runs_single_process_without_a_group(tmp_path):

@@ -178,6 +178,35 @@ def driver(rank, device, runs):
         est, gt = slam.run(end_frame=end_frame)
         files = sorted(os.listdir(mine)) if os.path.isdir(mine) else []
         out.append(dict(est=est, gt=gt, files=files, dp_devices=slam.dp_devices,
-                        params=_numpy_params(slam.params)))
+                        params=_numpy_params(slam.params), mesh_async=slam.mesh_async,
+                        mesh_files=list(slam.mesh_files), mesh_errors=list(slam._mesh_errors),
+                        mesh_thread_joined=slam._mesh_thread is None))
+    _no_jax()
+    return out
+
+
+def composed(rank, device, runs):
+    """The port's driver at the composed operating point, once per (config,
+    end frame, output dir) of ``runs``, every rank on the one output dir as
+    ``cli/run.py``'s ranks are: this rank's roles, trajectory, keyframe state
+    and decoder counts, the keystep's rays a shard, its map, the mesh files
+    it wrote and its extraction's errors."""
+    from dnsjax_torch.slam.driver import DNSSLAM
+
+    out = []
+    for cfg, end_frame, out_dir in runs:
+        slam = DNSSLAM(cfg, output_dir=out_dir, device=str(device))
+        est, _ = slam.run(end_frame=end_frame)
+        kf = slam.keyframes
+        active = slam.tracks or slam.maps
+        out.append(dict(
+            est=est.copy(), tracks=slam.tracks, maps=slam.maps, shard=slam.shard,
+            keystep_ranks=slam.keystep_ranks, kf_ids=list(kf.frame_ids),
+            kf_est=kf.est_c2w[:kf.count].numpy().copy(), kf_gt=kf.gt_c2w[:kf.count].numpy().copy(),
+            exist_decoders=list(slam.exist_decoders.items()),
+            keystep_pixels=slam.keystep_cfg.n_pixels, mesh_files=list(slam.mesh_files),
+            mesh_errors=list(slam._mesh_errors), mesh_thread_joined=slam._mesh_thread is None,
+            params=_numpy_params(slam.params) if active else None))
+        del slam
     _no_jax()
     return out
