@@ -35,6 +35,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and weights (the gather-and-sum half); ``encodings.dense_grid_encode``
      (the factory's 4-level dense grid, 16..64, 2^19 rows) on 131,072
      points with and without residuals against the encode twin, timed;
+     and the ScanNet profile's grid (``configs/scannet/scannet.yaml`` over
+     ``configs/slam.yaml`` as bench.py builds it: 40 classes, bound 7.68 x
+     7.68 x 3.84, 4 levels x 8 features, 2^20 rows a level, tet,
+     ``pallas_sr``) at its mapping shape (1992 rays x 31 samples), encode
+     with residuals and table gradient, checked and timed as the others;
+  2b. the ScanNet keystep: one ``slam.mapper.make_map_fn`` call (50
+     iterations, a 4-frame window) at that profile on random frames as
+     bench.py builds them, the cameras at the bound's centre: its wall,
+     the kernels' launches (both must run), then a torch.profiler pass of
+     the same call for the device time and busy share;
   3. SLAM: ``dnsjax_torch.cli.run configs/synthetic/textured.yaml`` on the
      card (frames 0-24 unless --end-frame) with ``mapping.vis_every=20``,
      ``mapping.mesh_every=20`` and ``mapping.checkpoint_every=20``, then ATE
@@ -377,6 +387,38 @@ TEXTURED = dict(n_levels=4, n_features=8, log2_hashmap_size=16, base_resolution=
 PARITY = dict(n_levels=16, n_features=2, log2_hashmap_size=16, base_resolution=16,
               desired_resolution=224, interp="trilinear", grad_corners=8, gather_bf16=False,
               scatter="xla")
+# bench.py's ScanNet row: the NYU40 label space, the bound it times, its
+# 4-frame keystep window
+SCANNET_CONFIG = os.path.join(ROOT, "configs", "scannet", "scannet.yaml")
+SCANNET_CLASSES = 40
+SCANNET_BOUND = ((0.0, 7.68), (0.0, 7.68), (0.0, 3.84))
+SCANNET_TARGETS = 4
+
+
+def scannet_profile():
+    """(config, DecoderSpec, MapConfig, points of one keystep iteration) of
+    the ScanNet profile, built as bench.py's ScanNet row builds them: the
+    config stack, ``DecoderSpec.from_config`` on the bound, the cropped
+    frame, the mapping and training sections' rays, samples and TV grid."""
+    import numpy as np
+
+    from dnsjax_torch.config import load_config
+    from dnsjax_torch.models.decoder import DecoderSpec
+    from dnsjax_torch.slam.mapper import MapConfig, MapLoss
+
+    cfg = load_config(SCANNET_CONFIG, os.path.join(ROOT, "configs", "slam.yaml"))
+    spec = DecoderSpec.from_config(cfg, np.asarray(SCANNET_BOUND), SCANNET_CLASSES)
+    cam, trn = cfg["cam"], cfg["training"]
+    ce = int(cam.get("crop_edge", 0))
+    H, W = int(cam["H"]) - 2 * ce, int(cam["W"]) - 2 * ce
+    mcfg = MapConfig(H=H, W=W, fx=float(cam["fx"]), fy=float(cam["fy"]), cx=(W - 1) / 2.0,
+                     cy=(H - 1) / 2.0, n_pixels=int(cfg["mapping"]["n_pixels"]),
+                     n_samples=int(trn["n_samples_ray"]), n_surface=int(trn["n_surface_ray"]),
+                     smooth_pts=int(trn.get("smooth_pts", 33)),
+                     smooth_every=int(trn.get("smooth_every", 1)),
+                     feature_taps=int(cfg["tpu"].get("feature_taps", 4)))
+    loss = MapLoss(spec, mcfg, SCANNET_TARGETS)
+    return cfg, spec, mcfg, loss.n_ray * SCANNET_TARGETS * loss.S
 
 
 def check_kernels(results, plain_shapes):
@@ -389,6 +431,7 @@ def check_kernels(results, plain_shapes):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    _, scannet, _, scannet_n = scannet_profile()
     cases = [
         # (name, spec kwargs, N, timed, table-gradient variants: spec changes)
         ("textured-map", TEXTURED, 1992 * 47, True, []),
@@ -401,6 +444,8 @@ def check_kernels(results, plain_shapes):
         ("textured-track-ns16", TEXTURED, 500 * 31, False, []),
         ("parity-map", PARITY, 1992 * 47, True, []),
         ("parity-track", PARITY, 500 * 47, True, []),
+        # the ScanNet profile's 2^20-row table (128 MiB, beyond the L2)
+        ("scannet-map", dataclasses.asdict(scannet.grid), scannet_n, True, []),
         ("synthetic-tet", dict(n_levels=8, n_features=2, log2_hashmap_size=13,
                                base_resolution=8, desired_resolution=112, interp="tet",
                                grad_corners=1, scatter="pallas_sr"),
@@ -473,7 +518,7 @@ def check_kernels(results, plain_shapes):
                 sca["max_abs_err"] = max(sca["max_abs_err"], _check_table_grad(
                     f"{name} {lvl_name}", lvl_spec, li, lw, gl))
                 sca["shapes"].append(_time_table_grad(f"{name} {lvl_name}", lvl_spec, li, lw, gl))
-        if name in ("parity-map", "textured-map-shard"):
+        if name in ("parity-map", "textured-map-shard", "scannet-map"):
             sca["shapes"].append(_time_table_grad(name, spec, idx, w, gl))
     # the table gradient again at the mapping shape, on ray-shaped points
     spec = hashgrid.HashGridSpec(**TEXTURED)
@@ -1630,6 +1675,101 @@ def run_composed():
     return counts
 
 
+def run_scannet_keystep():
+    """Phase 2b: one port keystep call (``make_map_fn``, the config's
+    ``mapping.n_iters`` iterations, a SCANNET_TARGETS-frame window) at the
+    ScanNet profile, on random frames as bench.py builds them (colours
+    uniform, depths 0.5-5 m, labels uniform over the 40 classes, encoder
+    features of each frame), the cameras at the bound's centre so the rays
+    end in the table's region. A 2-iteration call warms the caches; the
+    counted call's wall, the kernels' launches and its peak device memory
+    (allocated, from a reset just before it); then the same call under
+    torch.profiler for the device time and busy share. Both kernels must
+    launch, the losses stay finite and the table change. Returns the
+    counted call's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dnsjax_torch.geometry.se3 import tensor_from_camera
+    from dnsjax_torch.models.decoder import init_decoder_params
+    from dnsjax_torch.models.encoder import encode_images, init_encoder_params
+    from dnsjax_torch.slam.mapper import make_map_fn
+    from dnsjax_torch.slam.sampling import class_sorted_pixels
+
+    cfg, spec, mcfg, _ = scannet_profile()
+    dev = torch.device("cuda")
+    T, H, W, C = SCANNET_TARGETS, mcfg.H, mcfg.W, SCANNET_CLASSES
+    n_iters = int(cfg["mapping"]["n_iters"])
+    dtype = getattr(torch, cfg["tpu"].get("compute_dtype", "bfloat16"))
+    rng = np.random.default_rng(0)
+    colors = torch.as_tensor(rng.uniform(size=(T, H, W, 3)).astype(np.float32), device=dev)
+    depths = torch.as_tensor(rng.uniform(0.5, 5.0, size=(T, H, W)).astype(np.float32),
+                             device=dev)
+    labels_np = rng.integers(0, C, size=(T, H, W)).astype(np.int32)
+    si, off = zip(*(class_sorted_pixels(l, C) for l in labels_np))
+    est = torch.eye(4, device=dev).repeat(T, 1, 1)
+    est[:, :3, 3] = torch.tensor([(lo + hi) / 2 for lo, hi in SCANNET_BOUND], device=dev)
+    enc = init_encoder_params(device=dev)
+    window = {
+        "colors": colors, "depths": depths, "labels": torch.as_tensor(labels_np, device=dev),
+        "sorted_idx": torch.as_tensor(np.stack(si), device=dev),
+        "offsets": torch.as_tensor(np.stack(off), device=dev),
+        "refer_feats": encode_images(enc, colors[:, None].expand(T, 3, H, W, 3)),
+        "refer_fixed_c2w": est[:, None].expand(T, 3, 4, 4).contiguous(),
+        "refer_src": torch.full((T, 3), -1, dtype=torch.long, device=dev),
+        "pose_train": torch.ones(T, device=dev),
+        "bound": torch.tensor(SCANNET_BOUND, device=dev),
+        "lt_gate_iter": -1,
+    }
+    t7 = tensor_from_camera(est)
+    params = init_decoder_params(spec, torch.Generator().manual_seed(0), device=dev)
+    table0 = params["table"].clone()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    make_map_fn(spec, mcfg, T, 2, dtype)(params, t7[:, :4], t7[:, 4:], window, gen)
+    fn = make_map_fn(spec, mcfg, T, n_iters, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, _, aux = fn(params, t7[:, :4], t7[:, 4:], window, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = aux["losses"].cpu()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(params, t7[:, :4], t7[:, 4:], window, gen)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    dev_ms = sum(dev_us(e) for e in events) / 1e3
+    ours = {k: [sum(dev_us(e) for e in events if k in e.key) / 1e3,
+                sum(e.count for e in events if k in e.key)]
+            for k in ("hash_encode_fwd_kernel", "table_grad_kernel")}
+    g = spec.grid
+    line = dict(table=f"L={g.n_levels} T=2^{g.log2_hashmap_size} F={g.n_features} "
+                      f"{g.interp} {g.scatter}", n_class=C, window=T, iters=n_iters,
+                rays_x_samples=fn.loss_fn.n_ray * T * fn.loss_fn.S, compute_dtype=str(dtype),
+                wall_s=wall, wall_per_iter_ms=wall / n_iters * 1e3, launches=launches,
+                loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                profiled_wall_ms=prof_ms, device_ms=dev_ms, device_busy_share=dev_ms / prof_ms,
+                kernel_launches=sum(e.count for e in events), port_kernels=ours,
+                peak_mem_gib=peak_gib)
+    print("scannet_keystep " + json.dumps(line), flush=True)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite ScanNet keystep losses: {losses}")
+    if min(launches["hash_encode_fwd"], launches["scatter_add"]) <= 0 or min(
+            v[1] for v in ours.values()) <= 0:
+        raise AssertionError(f"a kernel of the ScanNet keystep never launched: {launches}, "
+                             f"{ours}")
+    if torch.equal(params["table"], table0):
+        raise AssertionError("the ScanNet keystep left the table unchanged")
+    return launches
+
+
 def profile_slam(slam, n_iters: int = 20, name: str = "slam", idx=None):
     """torch.profiler over one mapping call of ``n_iters`` iterations and one
     tracked frame (frame ``idx``, default the last) of the finished run:
@@ -1720,12 +1860,16 @@ def main(argv=None):
     dense_counts = check_kernels(results, plain_encode_shapes())
     print(f"phase kernels wall {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
+    scannet_counts = run_scannet_keystep()
+    print(f"phase scannet keystep wall {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
     main_frames = args.end_frame or MAIN_FRAMES
     slam, launches = run_slam(main_frames)
     print(f"phase slam wall {time.perf_counter() - t0:.2f} s", flush=True)
     for k, v in launches.items():
         results[k]["launches"] = v
-        results[k]["launches_by_path"] = {"slam": v, "encodings_dense": dense_counts[k]}
+        results[k]["launches_by_path"] = {"slam": v, "encodings_dense": dense_counts[k],
+                                          "scannet_keystep": scannet_counts[k]}
     t0 = time.perf_counter()
     profile_slam(slam, idx=min(main_frames, slam.n_img) - 1)
     print(f"phase profile wall {time.perf_counter() - t0:.2f} s", flush=True)

@@ -9,8 +9,10 @@ SSIM, MS-SSIM, LPIPS when ``DNSJAX_LPIPS_NPZ`` names weights, and semantic
 mIoU and accuracies; save ``renders/color_*.png`` and
 ``renders/semantic_*.png`` and append the averages to
 ``rendering_eval.txt``. The metrics are dnsjax's numpy functions; LPIPS is
-``dnsjax_torch.eval.lpips``. Frame ``idx`` draws its z values from a
-generator seeded with ``idx``.
+``dnsjax_torch.eval.lpips``. Frame ``idx`` takes the z values dnsjax
+draws from ``jax.random.PRNGKey(idx)`` (``render.sampling.key_z_noise``):
+each frame's render shares its surface draws over all rays, so other draws
+would move every seed's score of that frame alike.
 """
 
 from __future__ import annotations
@@ -36,12 +38,15 @@ class FrameRenderer:
     conditioned on the three nearest keyframe views (``kf_c2w`` (K, 4, 4)
     numpy, ``kf_colors`` indexable by slot; each slot encoded once) or,
     without keyframes, on the frame's own image three times; frame ``idx``
-    draws its z values from a generator seeded with ``idx``. The protocol of
-    dnsjax's eval_2d and of the A/B gate's ``@kf`` scoring."""
+    takes the z values dnsjax draws from ``jax.random.PRNGKey(idx)``
+    (``key_z_noise``, ``n_surface`` of each), so both packages score a map
+    on the same draws. The protocol of dnsjax's eval_2d and of the A/B
+    gate's ``@kf`` scoring."""
 
-    def __init__(self, renderer, params, encode, bound, device, kf_c2w=None, kf_colors=None):
+    def __init__(self, renderer, params, encode, bound, device, n_surface: int, kf_c2w=None,
+                 kf_colors=None):
         self.renderer, self.params, self.encode = renderer, params, encode
-        self.bound, self.device = bound, device
+        self.bound, self.device, self.n_surface = bound, device, n_surface
         self.kf_c2w, self.kf_colors = kf_c2w, kf_colors
         self._kf_feats = {}
 
@@ -58,6 +63,7 @@ class FrameRenderer:
         import torch
 
         from dnsjax_torch.geometry.se3 import invert_se3
+        from dnsjax_torch.render.sampling import key_z_noise
 
         dev = self.device
         c2w = torch.as_tensor(c2w_np, device=dev)
@@ -69,10 +75,10 @@ class FrameRenderer:
             refer_c2w = torch.stack([c2w, c2w, c2w])
             feats = self.encode(torch.as_tensor(frame["color"], device=dev)[None]
                                 .repeat(3, 1, 1, 1))
-        gen = torch.Generator(device=dev).manual_seed(idx)
         return self.renderer(self.params, c2w, torch.as_tensor(frame["depth"], device=dev),
                              torch.as_tensor(frame["label"], device=dev),
-                             invert_se3(refer_c2w), feats, self.bound, gen)
+                             invert_se3(refer_c2w), feats, self.bound,
+                             z_draws=key_z_noise(idx, self.n_surface, dev))
 
 
 def evaluate(argv=None):
@@ -112,7 +118,7 @@ def evaluate(argv=None):
               "self-conditioned reference views (optimistic metrics)")
     render = FrameRenderer(
         renderer, m["params"], lambda imgs: encode_images(m["enc"], imgs, m["dtype"]),
-        torch.as_tensor(m["bound"], device=dev), dev,
+        torch.as_tensor(m["bound"], device=dev), dev, int(trn["n_surface_ray"]),
         kf_c2w=np.asarray(ckpt["kf/est_c2w"]) if use_kf_refs else None,
         kf_colors=kf_colors if use_kf_refs else None)
 

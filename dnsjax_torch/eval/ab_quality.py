@@ -388,7 +388,7 @@ def score_run(slam, est, gt, frames, eval_every, protocol="kf"):
     use_kf = protocol == "kf" and kf.count > 0
     render = FrameRenderer(
         renderer, slam.params, lambda imgs: encode_images(slam.enc_params, imgs),
-        slam.bound, slam.device,
+        slam.bound, slam.device, slam.map_cfg.n_surface,
         kf_c2w=kf.est_c2w[:kf.count].cpu().numpy() if use_kf else None,
         kf_colors=kf.colors if use_kf else None)
     psnrs, dl1s, mious = [], [], []

@@ -2,13 +2,16 @@
 
 The random draws are inputs (``t_surf``, ``t_zero``), so a caller can feed
 the same numbers to both packages; ``draw_z_noise`` makes them from a
-``torch.Generator``. The z order comes from ``torch.sort`` (the
+``torch.Generator``, and ``key_z_noise`` makes the ones dnsjax draws from
+``jax.random.PRNGKey(seed)`` (its evaluation renders seed each frame's key
+with the frame index). The z order comes from ``torch.sort`` (the
 ``tpu.z_backend`` key is accepted and selects nothing: both of dnsjax's
 backends give the same values).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dnsjax_torch.ops.oneblob import linspace01
@@ -20,6 +23,43 @@ def draw_z_noise(generator: torch.Generator, batch: tuple, n_surface: int, devic
     t_surf = torch.rand(shape, generator=generator, device=device)
     t_zero = torch.rand(shape, generator=generator, device=device)
     return t_surf, t_zero
+
+
+def _threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 counter pairs,
+    as jax.random's default key implementation computes it."""
+    x = [x1.astype(np.uint32).copy(), x2.astype(np.uint32).copy()]
+    ks = [np.uint32(k1), np.uint32(k2), np.uint32(k1 ^ k2 ^ 0x1BD11BDA)]
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    with np.errstate(over="ignore"):
+        x[0] += ks[0]
+        x[1] += ks[1]
+        for i in range(5):
+            for r in rotations[i % 2]:
+                x[0] += x[1]
+                x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+                x[1] ^= x[0]
+            x[0] += ks[(i + 1) % 3]
+            x[1] += ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x
+
+
+def key_z_noise(seed: int, n_surface: int, device):
+    """(t_surf, t_zero), each (n_surface,), bit for bit the values of
+    ``k_surf, k_zero = jax.random.split(jax.random.PRNGKey(seed))`` and
+    ``jax.random.uniform(k, (n_surface,))`` that dnsjax's
+    ``sample_along_rays`` draws (threefry keys, partitionable splits and
+    bits: jax's defaults)."""
+    count = np.arange(2, dtype=np.uint32)
+    keys = _threefry2x32(0, seed, np.zeros(2, np.uint32), count)
+    out = []
+    for k in range(2):
+        b1, b2 = _threefry2x32(int(keys[0][k]), int(keys[1][k]),
+                               np.zeros(n_surface, np.uint32),
+                               np.arange(n_surface, dtype=np.uint32))
+        bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
+        out.append(torch.as_tensor(bits.view(np.float32) - np.float32(1.0), device=device))
+    return tuple(out)
 
 
 def sample_along_rays(

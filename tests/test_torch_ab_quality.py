@@ -2,7 +2,8 @@
 ``scripts/ab_quality.py``: its copies of ``VARIANTS``, ``BASE_SCHEDULE`` and
 ``build_variant_cfg`` equal the script's; the scoring of a finished run (the
 ``@kf`` reference views and the metrics) equals the script's ``run_variant``
-on one map carried across, with dnsjax's z draws replayed; an end-to-end CPU
+on one map carried across, each frame's z values drawn as the script draws
+them (``jax.random.PRNGKey(frame)``), bit for bit; an end-to-end CPU
 run at ``--small`` through ``main``; the report writes nothing at the
 repository root. Runtime budget: ~45 s on one core (the end-to-end run ~25
 s, each scoring case ~5 s)."""
@@ -90,21 +91,15 @@ def _drivers(tmp_path):
     return js, ts, est, gt
 
 
-def _recording(factory, calls, replay_jax_draws):
+def _recording(factory, calls):
     """Wrap a full-renderer factory so each render records its frame's
-    reference w2c; the port's replays dnsjax's z draws of key(idx)."""
+    reference w2c."""
     def make(*a, **k):
         render = factory(*a, **k)
-        n_surface = a[3]
 
-        def run(params, c2w, depth, label, refer_w2c, feats, bound, key_or_gen):
+        def run(params, c2w, depth, label, refer_w2c, feats, bound, *key, **draws):
             calls.append(np.asarray(refer_w2c))
-            if not replay_jax_draws:
-                return render(params, c2w, depth, label, refer_w2c, feats, bound, key_or_gen)
-            k_surf, k_zero = jax.random.split(jax.random.PRNGKey(key_or_gen.initial_seed()))
-            draws = (torch.tensor(np.asarray(jax.random.uniform(k_surf, (n_surface,)))),
-                     torch.tensor(np.asarray(jax.random.uniform(k_zero, (n_surface,)))))
-            return render(params, c2w, depth, label, refer_w2c, feats, bound, z_draws=draws)
+            return render(params, c2w, depth, label, refer_w2c, feats, bound, *key, **draws)
         return run
     return make
 
@@ -115,7 +110,9 @@ def test_scoring_equals_run_variant(protocol, tmp_path, monkeypatch):
     conditioned on (the three keyframes nearest by estimated position under
     ``kf``) equal the script's; ATE exactly, PSNR and depth L1 at rtol 1e-4
     and mIoU at atol 2e-3 (float32 renders agree to rtol 1e-4 / atol 1e-5,
-    tests/test_torch_render_full.py; an arg-max near a tie may flip a pixel)."""
+    tests/test_torch_render_full.py; an arg-max near a tie may flip a pixel).
+    Nothing is replayed: the port's scorer draws each frame's z values as
+    the script's ``jax.random.PRNGKey(frame)`` does."""
     import dnsjax.render.full as jfull
     import dnsjax.slam.driver as jdrv
     import dnsjax_torch.render.full as tfull
@@ -126,10 +123,8 @@ def test_scoring_equals_run_variant(protocol, tmp_path, monkeypatch):
     js.run = lambda: (est, gt)
     monkeypatch.setattr(jdrv, "DNSSLAM", lambda cfg, output_dir=None: js)
     jcalls, tcalls = [], []
-    monkeypatch.setattr(jfull, "make_full_renderer",
-                        _recording(jfull.make_full_renderer, jcalls, False))
-    monkeypatch.setattr(tfull, "make_full_renderer",
-                        _recording(tfull.make_full_renderer, tcalls, True))
+    monkeypatch.setattr(jfull, "make_full_renderer", _recording(jfull.make_full_renderer, jcalls))
+    monkeypatch.setattr(tfull, "make_full_renderer", _recording(tfull.make_full_renderer, tcalls))
     want = abq.run_variant("torch_scoring_test", abq.VARIANTS["parity"], 12, True, 7,
                            seed=0, protocol=protocol)
     got = tab.score_run(ts, est, gt, 12, 7, protocol)
@@ -142,6 +137,33 @@ def test_scoring_equals_run_variant(protocol, tmp_path, monkeypatch):
     for k in ("psnr_db", "depth_l1_cm"):
         assert got[k] == pytest.approx(want[k], rel=1e-4), k
     assert got["miou"] == pytest.approx(want["miou"], abs=2e-3)
+
+
+@pytest.mark.parametrize("n_surface", [15, 4])
+def test_frame_renderer_draws_the_scripts_z_values(n_surface):
+    """Each scored frame's render shares its n_surface surface and zero-depth
+    uniforms over all its rays, so the draws of frame idx move every seed's
+    score of that frame alike: the port's scorer (``FrameRenderer``, also
+    eval_2d's) takes the values the script's renderer draws from
+    ``jax.random.PRNGKey(idx)``, bit for bit, on any device."""
+    from dnsjax_torch.cli.eval_2d import FrameRenderer
+
+    seen = []
+
+    def renderer(*args, z_draws=None):
+        seen.append(z_draws)
+        return None
+
+    c2w = np.eye(4, dtype=np.float32)
+    frame = dict(color=np.zeros((4, 6, 3), np.float32), depth=np.ones((4, 6), np.float32),
+                 label=np.zeros((4, 6), np.int32))
+    render = FrameRenderer(renderer, None, lambda imgs: imgs[..., :1], None, "cpu", n_surface)
+    for idx in (4, 11, 39):
+        render(idx, frame, c2w)
+        k_surf, k_zero = jax.random.split(jax.random.PRNGKey(idx))
+        for got, key in zip(seen[-1], (k_surf, k_zero)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(
+                jax.random.uniform(key, (n_surface,))))
 
 
 def _digest(path):

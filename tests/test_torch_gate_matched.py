@@ -1,0 +1,206 @@
+"""``tools/gate_matched.py``, the matched comparison of the A/B gate's
+variants in both packages: its statistics (the Welch CI against scipy's,
+log-ATE, medians, the closure rule of the gate's open faults) on fixed
+numbers, its seed and preset parsing, the layout it reads back, and the
+shape it compares at: both packages' ``build_variant_cfg`` give one config
+for each variant at ``--small --frames 16`` with the tool's overrides
+applied. CPU only, a few seconds."""
+
+import importlib.util
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+from scipy import stats
+
+from dnsjax_torch.cli.run import apply_overrides
+from dnsjax_torch.eval import ab_quality as tab
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(name, *path):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+gm = _load("gate_matched", "tools", "gate_matched.py")
+
+A = [0.021, 0.018, 0.025, 0.019, 0.030, 0.017, 0.022, 0.020]
+B = [0.016, 0.019, 0.015, 0.018, 0.017, 0.020, 0.014, 0.016]
+
+
+def test_welch_matches_scipy():
+    ci = gm.welch(A, B)
+    ref = stats.ttest_ind(A, B, equal_var=False).confidence_interval(0.95)
+    assert ci["diff"] == pytest.approx(np.mean(A) - np.mean(B), rel=1e-12)
+    assert (ci["lo"], ci["hi"]) == pytest.approx((ref.low, ref.high), rel=1e-9)
+    assert ci["half"] == pytest.approx((ci["hi"] - ci["lo"]) / 2, rel=1e-12)
+    # by hand: the Welch-Satterthwaite degrees of freedom
+    va, vb = np.var(A, ddof=1) / 8, np.var(B, ddof=1) / 8
+    assert ci["df"] == pytest.approx((va + vb) ** 2 / (va ** 2 / 7 + vb ** 2 / 7), rel=1e-12)
+
+
+def test_describe():
+    d = gm.describe([3.0, 1.0, 2.0, 10.0])
+    assert d == dict(n=4, mean=4.0, sd=pytest.approx(np.std([3, 1, 2, 10], ddof=1)),
+                     median=2.5, min=1.0, max=10.0)
+
+
+@pytest.mark.parametrize("ci,sign,gap,fav,want", [
+    # CI excludes 0 on the fault's side
+    (dict(lo=0.001, hi=0.005, half=0.002), +1, 0.0034, False, "reproduced"),
+    (dict(lo=-1.2, hi=-0.3, half=0.45), -1, 0.78, False, "reproduced"),
+    # in the port's favour: a difference on the fault's side closes it
+    (dict(lo=-0.3, hi=-0.1, half=0.1), -1, 0.086, True, "closed: port better"),
+    # on the other side
+    (dict(lo=-0.005, hi=-0.001, half=0.002), +1, 0.0034, False, "open: opposite"),
+    # holds 0, narrower than the gap
+    (dict(lo=-0.002, hi=0.003, half=0.0025), +1, 0.0034, False, "closed"),
+    (dict(lo=-0.05, hi=0.07, half=0.06), -1, 0.086, True, "closed"),
+    # holds 0 but wider than the gap: nothing closes
+    (dict(lo=-0.004, hi=0.005, half=0.0045), +1, 0.0034, False,
+     "open: CI wider than the gap"),
+    (dict(lo=-0.9, hi=0.8, half=0.85), -1, 0.78, False, "open: CI wider than the gap"),
+])
+def test_closure_rule(ci, sign, gap, fav, want):
+    assert gm.decide(ci, sign, gap, fav) == want
+
+
+def _runs(variant, column, ates, psnrs, seeds=None):
+    pkg, dev = column.split(":")
+    return [dict(package=pkg, device=dev, variant=variant, seed=s, ate_rmse_m=a, psnr_db=p,
+                 depth_l1_cm=1.0 + 0.01 * s, miou=0.95)
+            for s, a, p in zip(seeds or range(len(ates)), ates, psnrs)]
+
+
+def test_summary_log_ate_medians_and_faults():
+    # one lost-track seed in the port's CPU column: the mean moves, the
+    # median and log(ATE) much less
+    lost = A[:-1] + [0.4]
+    runs = (_runs("parity", "dnsjax:cpu", A, [31.0 + 0.1 * i for i in range(8)])
+            + _runs("parity", "port:cpu", lost, [31.1 + 0.1 * i for i in range(8)])
+            + _runs("parity", "port:cuda", A[::-1], [31.2] * 7 + [31.3], seeds=range(8)))
+    summary = gm.summarise(runs)
+    ate = summary["parity"]["ate_rmse_m"]
+    assert set(ate["columns"]) == {"dnsjax:cpu", "port:cpu", "port:cuda"}
+    assert ate["columns"]["port:cpu"]["max"] == 0.4
+    assert ate["code"]["diff"] == pytest.approx(np.mean(lost) - np.mean(A))
+    assert ate["code_log"]["diff"] == pytest.approx(np.mean(np.log(lost)) - np.mean(np.log(A)))
+    assert ate["code_median"] == pytest.approx(np.median(lost) - np.median(A))
+    assert ate["device"]["diff"] == pytest.approx(np.mean(A) - np.mean(lost))
+    assert ate["total"]["diff"] == pytest.approx(0.0, abs=1e-15)
+    assert ate["total_median"] == pytest.approx(0.0, abs=1e-15)
+    assert "code_log" not in summary["parity"]["psnr_db"]
+    assert summary["parity"]["psnr_db"]["code"]["diff"] == pytest.approx(0.1)
+    f = gm.faults(summary)
+    assert set(f) == {4, 5}  # the bundle has no runs here
+    # the lost seed widens the ATE CI past fault 4's gap: open, not closed
+    assert f[4]["ci"]["half"] > gm.FAULTS[4]["gap"]
+    assert f[4]["outcome"] == "open: CI wider than the gap"
+    report = gm.report(summary, f)
+    assert "| 4 | parity | ate_rmse_m |" in report and "code_median" in report
+
+
+def test_report_only_rebuilds_the_summary_from_the_runs(tmp_path):
+    """``--report-only --merge``: the summary and the faults' outcomes come
+    from the runs' own metrics, never from the summary a file holds, and a
+    merged file's run replaces the one of the same (package, device,
+    variant, seed) before it."""
+    out, rerun = tmp_path / "gm.json", tmp_path / "rerun.json"
+    runs = (_runs("parity", "dnsjax:cpu", A, [31.0] * 8)
+            + _runs("parity", "port:cpu", [a + 0.01 for a in A], [31.5] * 8))
+    out.write_text(json.dumps(dict(runs=runs, summary={"stale": {}}, faults={"4": {}})))
+    rerun.write_text(json.dumps(dict(runs=_runs("parity", "port:cpu", A, [31.5] * 8))))
+    gm.main(["--report-only", "--out", str(out), "--merge", str(rerun)])
+    got = json.loads(out.read_text())
+    assert len(got["runs"]) == 16 and list(got["summary"]) == ["parity"]
+    assert [r["ate_rmse_m"] for r in got["runs"] if r["package"] == "port"] == A
+    ate = got["summary"]["parity"]["ate_rmse_m"]
+    assert ate["code"]["diff"] == pytest.approx(0.0, abs=1e-15)
+    assert got["faults"]["4"]["ci"] == ate["code"]
+    assert got["faults"]["4"]["outcome"] == "open: CI wider than the gap"
+    assert got["faults"]["5"]["outcome"] == "closed"
+
+
+def test_contrast_needs_two_seeds_a_column():
+    runs = (_runs("parity", "dnsjax:cpu", A[:1], [31.0])
+            + _runs("parity", "port:cpu", A, [31.0] * 8))
+    summary = gm.summarise(runs)
+    assert "code" not in summary["parity"]["ate_rmse_m"]
+    assert gm.faults(summary) == {}
+
+
+def test_seeds_and_preset():
+    assert gm._seeds("0-7") == list(range(8))
+    assert gm._seeds("0,2,4-5") == [0, 2, 4, 5]
+    p = gm.PRESETS["fault7"]
+    assert (p["variants"], p["set"], p["frames"], p["eval_every"], p["seeds"]) == (
+        "lm-track,ns16", ["use_gt_camera=true"], 8, 1, "0,1,2")
+    assert p["out"].endswith(os.path.join("output", "fault7_small.json"))
+
+
+def test_reads_the_first_fault7_layout(tmp_path, capsys):
+    """The first fault-7 runs name no device (dnsjax on the CPU): the preset's
+    ``--report-only`` reads them, merges another file's runs and writes the
+    file anew; an option given beside the preset wins."""
+    old = tmp_path / "f7.json"
+    runs = _runs("ns16", "dnsjax:cpu", A[:3], [33.0] * 3)
+    for r in runs:
+        del r["device"]
+    old.write_text(json.dumps(dict(runs=runs, depth_l1_cm={})))
+    other = tmp_path / "port.json"
+    other.write_text(json.dumps(dict(runs=_runs("ns16", "port:cuda", B[:3], [33.0] * 3))))
+    gm.main(["--preset", "fault7", "--report-only", "--out", str(old), "--merge", str(other)])
+    got = json.loads(old.read_text())
+    assert {(r["package"], r["device"]) for r in got["runs"]} == {("dnsjax", "cpu"),
+                                                                 ("port", "cuda")}
+    assert set(got["summary"]["ns16"]["depth_l1_cm"]["columns"]) == {"dnsjax:cpu", "port:cuda"}
+    assert "| ns16 | depth_l1_cm | dnsjax:cpu | 3 |" in capsys.readouterr().out
+
+
+def test_written_file_round_trips(tmp_path):
+    out = tmp_path / "gm.json"
+    runs = (_runs("parity", "dnsjax:cpu", A, [31.0] * 8)
+            + _runs("parity", "port:cpu", B, [31.5] * 8))
+    done = {gm._key(r): r for r in runs}
+    gm._write(str(out), done, ["parity", "ns16-m50-map10-lm8"], quiet=True)
+    got = json.loads(out.read_text())
+    assert len(got["runs"]) == 16 and list(got["summary"]) == ["parity"]
+    assert set(got["faults"]) == {"4", "5"}
+    assert math.isclose(got["summary"]["parity"]["ate_rmse_m"]["code"]["diff"],
+                        np.mean(B) - np.mean(A))
+
+
+@pytest.mark.parametrize("name,sets", [("parity", []), ("ns16-m50-map10-lm8", []),
+                                       ("lm-track", ["use_gt_camera=true"]),
+                                       ("ns16", ["use_gt_camera=true"])])
+def test_both_packages_build_one_config(name, sets, monkeypatch):
+    """The shape the tool compares at (``--small``, 16 frames; 8 for the
+    fault-7 preset) with its overrides: the tool's own for dnsjax, the
+    port's ``apply_overrides`` for the port."""
+    monkeypatch.chdir(ROOT)
+    abq = _load("abq_script", "scripts", "ab_quality.py")
+    frames = 8 if sets else 16
+    for seed in (0, 5):
+        want = gm._apply_sets(abq.build_variant_cfg(name, abq.VARIANTS[name], frames, True,
+                                                    seed), sets)
+        got = apply_overrides(tab.build_variant_cfg(name, tab.VARIANTS[name], frames, True,
+                                                    seed), sets)
+        assert got == want
+        assert got["cam"]["H"] == 170 and got["mapping"]["n_pixels"] == 1000
+        assert got["tracking"]["n_pixels"] == 300
+        assert got.get("use_gt_camera", False) == bool(sets)
+
+
+def test_the_port_does_not_import_the_tool():
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "dnsjax_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    text = fh.read()
+                assert "gate_matched" not in text and "import tools" not in text, f

@@ -47,9 +47,9 @@ KEYSTEP_TOL = {"float32": dict(loss=1e-4, median=1e-3, max=0.5, pose=1e-2),
 
 def bundle_cfgs(**kw):
     """(dnsjax, port) MapConfig at the bundle's mapping settings, scaled to
-    the small scene's ray budget."""
-    kw = dict(CAM, n_pixels=90, n_samples=16, n_surface=15, smooth_pts=5, smooth_every=4,
-              feature_taps=1, **kw)
+    the small scene's ray budget; ``kw`` overrides them."""
+    kw = dict(dict(CAM, n_pixels=90, n_samples=16, n_surface=15, smooth_pts=5, smooth_every=4,
+                   feature_taps=1), **kw)
     return jmap.MapConfig(**kw), tmap.MapConfig(**kw)
 
 
@@ -118,3 +118,59 @@ def test_bundle_keystep_draws_cover_both_iteration_kinds(scene):
     assert [it for it in range(N_ITERS) if loss_t.smooth_iter(it)] == [0, 4]
     assert loss_t.S == 31
     assert dataclasses.asdict(tcfg)["smooth_every"] == 4
+
+
+def scannet_scene():
+    """The ScanNet profile's model (``configs/scannet/scannet.yaml`` over
+    ``configs/slam.yaml``, as bench.py's ScanNet row builds it: 40 classes,
+    the 7.68 x 7.68 x 3.84 bound, 4 x 8 features, tet, ``pallas_sr``) with
+    ``hash_size`` cut from 20 to 12 for the CPU, on three random frames as
+    bench.py builds them (colours uniform, labels uniform over the 40
+    classes) at the small scene's camera, placed inside the bound looking
+    down its z axis with depths 0.5-1.8 m so the rays end in the bound."""
+    from types import SimpleNamespace
+
+    from dnsjax.config import load_config
+    from dnsjax.models import decoder as jd
+    from dnsjax.models.encoder import encode_images, init_encoder_params
+    from dnsjax_torch.models import decoder as td
+
+    cfg = load_config("configs/scannet/scannet.yaml", "configs/slam.yaml")
+    cfg["model"]["grid"]["hash_size"] = 12
+    bound = np.asarray([[0.0, 7.68], [0.0, 7.68], [0.0, 3.84]], np.float32)
+    jsp = jd.DecoderSpec.from_config(cfg, bound, 40)
+    tsp = td.DecoderSpec.from_config(cfg, bound, 40)
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(3):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 3] = [3.84 + 0.05 * i, 3.84, 1.92]
+        frames.append(dict(
+            color=rng.uniform(size=(CAM["H"], CAM["W"], 3)).astype(np.float32),
+            depth=rng.uniform(0.5, 1.8, size=(CAM["H"], CAM["W"])).astype(np.float32),
+            label=rng.integers(0, 40, size=(CAM["H"], CAM["W"])).astype(np.int32), c2w=c2w))
+    jp = jd.init_decoder_params(jax.random.PRNGKey(0), jsp)
+    feats = np.asarray(encode_images(init_encoder_params(0),
+                                     jnp.asarray(np.stack([f["color"] for f in frames]))))
+    return cfg, dict(ds=SimpleNamespace(n_class=40), frames=frames, bound=bound, jsp=jsp,
+                     tsp=tsp, jp=jp, feats=feats)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scannet_keystep_matches_make_map_fn(dtype):
+    """Two keystep iterations (the first with the TV term) at the ScanNet
+    profile's model and mapping settings (samples, surface samples, TV
+    grid, cadence, lr from the config stack; the small scene's 90-ray
+    budget), held to dnsjax's ``make_map_fn`` on its draws at KEYSTEP_TOL."""
+    cfg, sc = scannet_scene()
+    trn = cfg["training"]
+    g = sc["tsp"].grid
+    assert (sc["tsp"].n_class, g.n_levels, g.n_features, g.interp, g.scatter) == (
+        40, 4, 8, "tet", "pallas_sr")
+    # int(7.68 m / 0.04 m voxels), truncated in both packages
+    assert g.desired_resolution == sc["jsp"].grid.desired_resolution == 191
+    ref, got, init, tcfg = run_both(
+        sc, dtype, jax.random.PRNGKey(71), n_iters=2, n_samples=int(trn["n_samples_ray"]),
+        n_surface=int(trn["n_surface_ray"]), smooth_pts=int(trn["smooth_pts"]),
+        smooth_every=int(trn["smooth_every"]), lr=float(trn["lr"]))
+    assert_keystep_close(ref, got, init, tcfg, KEYSTEP_TOL[dtype])

@@ -49,19 +49,21 @@ TRACK = dict(**CAM, n_pixels=100, n_samples=6, n_surface=4, ignore_edge=2, featu
              method="lm", lm_iters=8, lm_patience=0)
 
 
-def build_sequence(map_iters):
+def build_sequence(map_iters, grid=GRID, kernel="quartic", taps=1, smooth_every=4):
     """Frames, encoder features, and a map trained by the port (``map_iters``
     keystep iterations on frames 0, 4, 8 at their GT poses, float32), as a dnsjax
-    pytree and as port tensors carried across from it."""
+    pytree and as port tensors carried across from it. ``grid``, ``kernel``
+    (OneBlob), ``taps`` and ``smooth_every``: the variant's model and keystep
+    (the bundle's by default)."""
     cfg = {"cam": dict(CAM, png_depth_scale=1000.0, crop_edge=0),
            "synthetic": {"n_frames": N_FRAMES, "seed": 0}}
     ds = SyntheticDataset(cfg)
     frames = [ds[i] for i in range(N_FRAMES)]
     bound = load_bound({"back_end": {"bound": [[-2.2, 2.2]] * 3}})
-    jsp = jd.DecoderSpec(n_class=ds.n_class, grid=jd.HashGridSpec(**GRID),
-                         oneblob_kernel="quartic")
-    tsp = td.DecoderSpec(n_class=ds.n_class, grid=th.HashGridSpec(**GRID),
-                         oneblob_kernel="quartic")
+    jsp = jd.DecoderSpec(n_class=ds.n_class, grid=jd.HashGridSpec(**grid),
+                         oneblob_kernel=kernel)
+    tsp = td.DecoderSpec(n_class=ds.n_class, grid=th.HashGridSpec(**grid),
+                         oneblob_kernel=kernel)
     template = jd.init_decoder_params(jax.random.PRNGKey(0), jsp)
     feats = np.asarray(encode_images(init_encoder_params(0),
                                      jnp.asarray(np.stack([f["color"] for f in frames]))))
@@ -88,7 +90,7 @@ def build_sequence(map_iters):
         "lt_gate_iter": -1,
     }
     mcfg = tmap.MapConfig(**CAM, n_pixels=300, n_samples=6, n_surface=4, smooth_pts=5,
-                          smooth_every=4, feature_taps=1)
+                          smooth_every=smooth_every, feature_taps=taps)
     t7 = torch.as_tensor(np.stack([t_t7(f["c2w"]) for f in mf]).astype(np.float32))
     tmap.make_map_fn(tsp, mcfg, 3, map_iters, torch.float32)(
         tp, t7[:, :4], t7[:, 4:], window, torch.Generator().manual_seed(0))

@@ -1,0 +1,410 @@
+"""The A/B gate's variants run by both packages at one shape, on the same
+device where it can be: does the port differ from dnsjax, or its card from
+its CPU?
+
+    python tools/gate_matched.py [--variants parity,ns16-m50-map10-lm8]
+        [--columns dnsjax:cpu,port:cpu,port:cuda] [--seeds 0-7]
+        [--frames 16] [--eval-every 3] [--set KEY=VALUE ...]
+        [--jobs 3] [--threads 2] [--out output/gate_matched.json]
+        [--runs DIR] [--merge OTHER.json ...] [--report-only]
+        [--preset fault7]
+
+A column is ``package:device``. dnsjax runs ``scripts/ab_quality.py:
+run_variant`` under ``JAX_PLATFORMS=cpu``; the port runs
+``dnsjax_torch/eval/ab_quality.py:run_variant`` on its device (``cpu`` or
+``cuda``; ``cuda-plain`` and ``cuda-hostsolve`` are diagnostic columns on
+the card: the encode's and the table gradient's wrappers replaced by their
+plain PyTorch versions, or the LM tracker's 7x7 solve made on the host's
+LAPACK; they tell the kernels and the solver from the rest of the card's
+arithmetic). Every run is ``--small`` (170x300, 1000 mapping and 300 tracking
+rays), tracked unless ``--set use_gt_camera=true``, and scored on the
+``@kf`` protocol over frames 4, 4 + e, ... < frames. One subprocess a
+(package, device, variant, seed), each pinned to ``--threads`` cores of its
+own so parallel jobs do not oversubscribe the host, its run under
+``--runs`` (default ``output/<out's stem>/``). Runs start in the order of
+``--columns``, then ``--variants``, then the seeds (name the slowest
+first: on the CPU the port's ``parity`` runs take longest). Each result is appended to ``--out``
+as its run ends, and runs already there are skipped, so a sweep may span
+several calls; ``--merge`` adds the runs of other such files (a column run
+on another machine) before anything runs.
+
+The report (stdout, markdown; ``summary`` in the JSON) gives, for each
+variant x metric x column, the mean, SD, median and min..max over seeds, and
+the difference of the means with its Welch 95 % CI for ``port:cpu -
+dnsjax:cpu`` (the code), ``port:cuda - port:cpu`` (the device and its
+kernels) and ``port:cuda - dnsjax:cpu`` (the two together, the gate's own
+comparison at this shape); for ATE also on log(ATE) and as the difference
+of the medians. The port's CPU and CUDA generators draw different streams, so the columns
+are compared as distributions, never seed by seed. ``FAULTS`` holds the
+open gate faults and ``decide`` their closure rule: reproduced when the CI
+excludes 0 in the fault's direction, not a port difference when it holds 0
+and its half-width is below the gap that opened the fault, else open.
+
+``--preset fault7`` is the GT-pose depth-L1 comparison of the 16-sample
+axis: ``--variants lm-track,ns16 --set use_gt_camera=true --frames 8
+--eval-every 1 --seeds 0,1,2 --out output/fault7_small.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+METRICS = ("ate_rmse_m", "psnr_db", "depth_l1_cm", "miou")
+COLUMNS = ("dnsjax:cpu", "port:cpu", "port:cuda", "port:cuda-plain", "port:cuda-hostsolve")
+# (name, a, b): the difference a - b of the means, a and b columns; "total"
+# is the gate's own comparison (the port on the card against dnsjax) at one
+# shape, the sum of "code" and "device"; "kernels" and "solve" split
+# "device" by the card's runs with a part of the path swapped (_DIAGNOSTIC)
+CONTRASTS = (("code", "port:cpu", "dnsjax:cpu"), ("device", "port:cuda", "port:cpu"),
+             ("total", "port:cuda", "dnsjax:cpu"), ("kernels", "port:cuda", "port:cuda-plain"),
+             ("solve", "port:cuda", "port:cuda-hostsolve"))
+PRESETS = {
+    "fault7": dict(variants="lm-track,ns16", set=["use_gt_camera=true"], frames=8,
+                   eval_every=1, seeds="0,1,2",
+                   out=os.path.join(ROOT, "output", "fault7_small.json")),
+}
+# The open faults of the A/B gate on the card: variant, metric, the sign of
+# the port-minus-dnsjax difference that would reproduce it, the gap between
+# the port's 3-seed card mean and the JAX range's nearer end that opened it,
+# and whether the fault is in the port's favour (then a difference in its
+# direction closes it too). Fault 8's own gap (0.00003 m) is below what any
+# run resolves, so it is judged on fault 4's ATE gap.
+FAULTS = {
+    4: dict(variant="parity", metric="ate_rmse_m", sign=+1, gap=0.0034, favourable=False),
+    5: dict(variant="parity", metric="depth_l1_cm", sign=-1, gap=0.086, favourable=True),
+    6: dict(variant="ns16-m50-map10-lm8", metric="psnr_db", sign=-1, gap=0.78,
+            favourable=False),
+    8: dict(variant="ns16-m50-map10-lm8", metric="ate_rmse_m", sign=+1, gap=0.0034,
+            favourable=False),
+}
+
+
+def describe(xs) -> dict:
+    """n, mean, SD (n - 1), median, min and max of a list of numbers."""
+    a = np.asarray(xs, dtype=np.float64)
+    return dict(n=int(a.size), mean=float(a.mean()),
+                sd=float(a.std(ddof=1)) if a.size > 1 else float("nan"),
+                median=float(np.median(a)), min=float(a.min()), max=float(a.max()))
+
+
+def welch(a, b, level: float = 0.95) -> dict:
+    """The difference of the means mean(a) - mean(b) with its Welch CI (the
+    Welch-Satterthwaite degrees of freedom)."""
+    from scipy import stats
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    va, vb = a.var(ddof=1) / a.size, b.var(ddof=1) / b.size
+    se = math.sqrt(va + vb)
+    df = (va + vb) ** 2 / (va ** 2 / (a.size - 1) + vb ** 2 / (b.size - 1)) if se > 0 \
+        else float(a.size + b.size - 2)
+    diff = float(a.mean() - b.mean())
+    half = float(stats.t.ppf(0.5 + level / 2, df) * se)
+    return dict(diff=diff, lo=diff - half, hi=diff + half, half=half, df=float(df))
+
+
+def decide(ci: dict, sign: int, gap: float, favourable: bool = False) -> str:
+    """The closure rule of a fault whose port-minus-dnsjax difference ``ci``
+    (``welch``'s dict) would reproduce it with sign ``sign``:
+    ``reproduced`` when the CI excludes 0 on that side (``closed: port
+    better`` for a fault in the port's favour), ``open: opposite`` when it
+    excludes 0 on the other side, ``closed`` when it holds 0 and its
+    half-width is below ``gap``, else ``open: CI wider than the gap``."""
+    lo, hi = sign * ci["lo"], sign * ci["hi"]
+    if min(lo, hi) > 0:
+        return "closed: port better" if favourable else "reproduced"
+    if max(lo, hi) < 0:
+        return "open: opposite"
+    return "closed" if ci["half"] < gap else "open: CI wider than the gap"
+
+
+def summarise(runs: list, variants=None) -> dict:
+    """{variant: {metric: {"columns": {column: describe}, contrast: welch,
+    and for ATE "log" and "median" contrasts}}} over the seeds each column
+    has; a contrast needs two seeds in each of its columns."""
+    out = {}
+    variants = variants or sorted({r["variant"] for r in runs})
+    for v in variants:
+        rv = [r for r in runs if r["variant"] == v]
+        out[v] = {}
+        for m in [m for m in METRICS if any(m in r for r in rv)]:
+            col = {}
+            for r in rv:
+                if m in r:
+                    col.setdefault(f"{r['package']}:{r['device']}", []).append(r[m])
+            entry = dict(columns={c: describe(xs) for c, xs in col.items()})
+            for name, a, b in CONTRASTS:
+                if len(col.get(a, ())) < 2 or len(col.get(b, ())) < 2:
+                    continue
+                entry[name] = welch(col[a], col[b])
+                if m == "ate_rmse_m":
+                    entry[name + "_log"] = welch(np.log(col[a]), np.log(col[b]))
+                    entry[name + "_median"] = float(np.median(col[a]) - np.median(col[b]))
+            out[v][m] = entry
+    return out
+
+
+def faults(summary: dict) -> dict:
+    """{fault: dict(variant, metric, ci, outcome)} for each of ``FAULTS``
+    whose variant has a code contrast in ``summary``."""
+    res = {}
+    for k, f in FAULTS.items():
+        ci = summary.get(f["variant"], {}).get(f["metric"], {}).get("code")
+        if ci is not None:
+            res[k] = dict(f, ci=ci, outcome=decide(ci, f["sign"], f["gap"], f["favourable"]))
+    return res
+
+
+def report(summary: dict, fault_rows: dict) -> str:
+    """The markdown tables of ``summary`` and the faults' outcomes."""
+    lines = ["| variant | metric | column | n | mean | SD | median | min..max |",
+             "|---|---|---|---|---|---|---|---|"]
+    for v, ms in summary.items():
+        for m, e in ms.items():
+            for c in COLUMNS:
+                d = e["columns"].get(c)
+                if d:
+                    lines.append(f"| {v} | {m} | {c} | {d['n']} | {d['mean']:.5g} | "
+                                 f"{d['sd']:.3g} | {d['median']:.5g} | "
+                                 f"{d['min']:.5g}..{d['max']:.5g} |")
+    lines += ["", "| variant | metric | contrast | diff of means | Welch 95 % CI | half-width |",
+              "|---|---|---|---|---|---|"]
+    for v, ms in summary.items():
+        for m, e in ms.items():
+            for name in [c + s for c, _, _ in CONTRASTS for s in ("", "_log")]:
+                ci = e.get(name)
+                if ci:
+                    lines.append(f"| {v} | {m} | {name} | {ci['diff']:+.4g} | "
+                                 f"[{ci['lo']:+.4g}, {ci['hi']:+.4g}] | {ci['half']:.3g} |")
+            for name in [c + "_median" for c, _, _ in CONTRASTS]:
+                if name in e:
+                    lines.append(f"| {v} | {m} | {name} | {e[name]:+.4g} | | |")
+    if fault_rows:
+        lines += ["", "| fault | variant | metric | code CI | gap | outcome |",
+                  "|---|---|---|---|---|---|"]
+        for k, f in fault_rows.items():
+            lines.append(f"| {k} | {f['variant']} | {f['metric']} | "
+                         f"[{f['ci']['lo']:+.4g}, {f['ci']['hi']:+.4g}] | {f['gap']} | "
+                         f"{f['outcome']} |")
+    return "\n".join(lines)
+
+
+def _apply_sets(cfg: dict, sets) -> dict:
+    """``a.b.c=value`` strings onto a nested config dict, values parsed as
+    YAML scalars."""
+    import yaml
+
+    for item in sets or ():
+        path, _, text = item.partition("=")
+        keys = path.split(".")
+        node = cfg
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = yaml.safe_load(text)
+    return cfg
+
+
+def _plain_kernels():
+    """The encode's and the table gradient's wrappers replaced by their
+    plain versions (``ops/hashgrid.py`` looks both up at each call)."""
+    from dnsjax_torch.ops import gather, scatter
+
+    gather.encode_forward = gather.encode_forward_plain
+    scatter.table_grad = scatter.table_grad_plain
+
+
+def _host_solve():
+    """The LM tracker's damped 7x7 solve made on the host, as on the CPU."""
+    import torch
+
+    from dnsjax_torch.slam.tracker import Tracker
+
+    solve = Tracker.lm_delta_normal
+    Tracker.lm_delta_normal = staticmethod(lambda JTJ, JTr, lam: solve(
+        JTJ.cpu(), JTr.cpu(), torch.as_tensor(lam).cpu()).to(JTJ.device))
+
+
+_DIAGNOSTIC = {"cuda-plain": _plain_kernels, "cuda-hostsolve": _host_solve}
+
+
+def _one(pkg: str, device: str, name: str, seed: int, frames: int, eval_every: int,
+         out: str, sets) -> dict:
+    """One run in this process, its outputs under ``out``; returns
+    run_variant's dict."""
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    if pkg == "dnsjax":
+        sys.path.insert(0, os.path.join(ROOT, "scripts"))
+        import ab_quality as ab
+        import dnsjax.slam.driver as jdrv
+
+        build, slam_cls = ab.build_variant_cfg, jdrv.DNSSLAM
+
+        def build_set(*a, **kw):  # the script takes no overrides of its own
+            return _apply_sets(build(*a, **kw), sets)
+
+        class Here(slam_cls):  # run_variant's own output dir is fixed
+            def __init__(self, cfg, output_dir=None):
+                super().__init__(cfg, output_dir=out)
+
+        ab.build_variant_cfg, jdrv.DNSSLAM = build_set, Here
+        os.system = lambda cmd: 0  # run_variant empties its fixed dir first
+        return ab.run_variant(name, ab.VARIANTS[name], frames, True, eval_every, seed=seed,
+                              protocol="kf")
+    import torch
+
+    from dnsjax_torch.eval import ab_quality as ab
+
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    if device in _DIAGNOSTIC:
+        _DIAGNOSTIC[device]()
+        device = "cuda"
+    return ab.run_variant(name, ab.VARIANTS[name], frames, True, eval_every, seed=seed,
+                          protocol="kf", device=device, out=out, sets=list(sets))
+
+
+def _child(argv: list, cores, what: str) -> dict:
+    """Run this script with ``argv`` pinned to ``cores``; its GMRESULT dict."""
+    n = str(len(cores))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS=n, MKL_NUM_THREADS=n,
+               OPENBLAS_NUM_THREADS=n)
+    cmd = [sys.executable, os.path.abspath(__file__)] + argv + [
+        "--cores", ",".join(map(str, cores))]
+    p = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT)
+    line = next((ln for ln in p.stdout.splitlines() if ln.startswith("GMRESULT ")), None)
+    if p.returncode != 0 or line is None:
+        raise RuntimeError(f"{what} failed ({p.returncode}):\n"
+                           f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    return json.loads(line[len("GMRESULT "):])
+
+
+def _run_dir(args, pkg: str, device: str, name: str, seed: int) -> str:
+    return os.path.join(args.runs or os.path.splitext(args.out)[0],
+                        f"{pkg}_{device}_{name}_s{seed}")
+
+
+def _spawn(column: str, name: str, seed: int, args, cores) -> dict:
+    """One run of ``column`` in a child process; its result row."""
+    pkg, device = column.split(":")
+    argv = ["--one", column, name, str(seed), "--frames", str(args.frames), "--eval-every",
+            str(args.eval_every), "--run-dir", _run_dir(args, pkg, device, name, seed)]
+    for item in args.set:
+        argv += ["--set", item]
+    t0 = time.perf_counter()
+    r = _child(argv, cores, f"{column} {name} seed {seed}")
+    r.update(package=pkg, device=device, variant=name, seed=seed,
+             process_s=round(time.perf_counter() - t0, 1), threads=len(cores),
+             frames=args.frames, eval_every=args.eval_every, sets=list(args.set))
+    print(json.dumps(r), flush=True)
+    return r
+
+
+def _seeds(text: str) -> list:
+    """``0-7`` or ``0,1,2`` (or both, comma-joined) as a list of ints."""
+    out = []
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        out += list(range(int(lo), int(hi or lo) + 1))
+    return out
+
+
+def _key(r: dict) -> tuple:
+    return (r["package"], r["device"], r["variant"], r["seed"])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--preset", choices=sorted(PRESETS), default=None)
+    ap.add_argument("--variants", type=str, default="parity,ns16-m50-map10-lm8")
+    ap.add_argument("--columns", type=str, default=",".join(COLUMNS[:3]))
+    ap.add_argument("--seeds", type=str, default="0-7")
+    ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--eval-every", type=int, default=3)
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="a config override of every run (both packages)")
+    ap.add_argument("--jobs", type=int, default=3)
+    ap.add_argument("--threads", type=int, default=2, help="cores pinned to each job")
+    ap.add_argument("--out", type=str, default=os.path.join(ROOT, "output",
+                                                             "gate_matched.json"))
+    ap.add_argument("--runs", type=str, default=None, help="where each run's outputs go")
+    ap.add_argument("--merge", nargs="+", default=[], metavar="JSON",
+                    help="other files of this tool whose runs to add")
+    ap.add_argument("--report-only", action="store_true")
+    ap.add_argument("--one", nargs=3, metavar=("COLUMN", "VARIANT", "SEED"), default=None)
+    ap.add_argument("--cores", type=str, default=None)
+    ap.add_argument("--run-dir", type=str, default=None)
+    args = ap.parse_args(argv)
+    if args.preset:  # the preset's values, under the options given
+        ap.set_defaults(**PRESETS[args.preset])
+        args = ap.parse_args(argv)
+    if args.one:
+        column, name, seed = args.one
+        if args.cores:
+            os.sched_setaffinity(0, [int(c) for c in args.cores.split(",")])
+        pkg, device = column.split(":")
+        r = _one(pkg, device, name, int(seed), args.frames, args.eval_every, args.run_dir,
+                 args.set)
+        print("GMRESULT " + json.dumps(r), flush=True)
+        return r
+    done = {}
+    for path in [args.out] + args.merge:  # earlier calls' runs, merged
+        if os.path.exists(path):
+            with open(path) as f:
+                for r in json.load(f)["runs"]:
+                    r.setdefault("device", "cpu")  # fault 7's first runs name none
+                    done[_key(r)] = r
+    variants = args.variants.split(",")
+    if args.report_only:
+        return _write(args.out, done, variants)
+    todo = [(c, v, s) for c in args.columns.split(",") for v in variants
+            for s in _seeds(args.seeds) if (*c.split(":"), v, s) not in done]
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    cores = sorted(os.sched_getaffinity(0))
+    slots = [cores[(i * args.threads) % len(cores):][:args.threads] for i in range(args.jobs)]
+    free = list(range(args.jobs))
+    lock = threading.Lock()
+
+    def run(item):
+        with lock:
+            slot = free.pop()
+        try:
+            res = _spawn(*item, args, slots[slot])
+        finally:
+            with lock:
+                free.append(slot)
+        with lock:
+            done[_key(res)] = res
+            _write(args.out, done, variants, quiet=True)
+        return res
+
+    with ThreadPoolExecutor(args.jobs) as ex:
+        list(ex.map(run, todo))
+    return _write(args.out, done, variants)
+
+
+def _write(path: str, done: dict, variants, quiet: bool = False) -> dict:
+    """Write every run so far, their summary and the faults' outcomes to
+    ``path``; print the report unless ``quiet``; return the summary."""
+    runs = sorted(done.values(), key=_key)
+    summary = summarise(runs, [v for v in variants if any(r["variant"] == v for r in runs)])
+    fault_rows = faults(summary)
+    with open(path, "w") as f:
+        json.dump(dict(runs=runs, summary=summary, faults={str(k): v for k, v in
+                                                             fault_rows.items()}), f, indent=1)
+    if not quiet:
+        print(report(summary, fault_rows), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()
