@@ -2,9 +2,11 @@
 variants in both packages: its statistics (the Welch CI against scipy's,
 log-ATE, medians, the closure rule of the gate's open faults) on fixed
 numbers, its seed and preset parsing, the layout it reads back, and the
-shape it compares at: both packages' ``build_variant_cfg`` give one config
-for each variant at ``--small --frames 16`` with the tool's overrides
-applied. CPU only, a few seconds."""
+shapes it compares at: both packages' ``build_variant_cfg`` give one config
+for each variant at ``--small --frames 16`` and at the gate's own 680x1200,
+40 frames, with the tool's overrides applied; a file never mixes two
+shapes. Also the lost-track reading (the count's Fisher test, the CI over
+the kept seeds) and the range reading. CPU only, a few seconds."""
 
 import importlib.util
 import json
@@ -98,7 +100,7 @@ def test_summary_log_ate_medians_and_faults():
     assert "code_log" not in summary["parity"]["psnr_db"]
     assert summary["parity"]["psnr_db"]["code"]["diff"] == pytest.approx(0.1)
     f = gm.faults(summary)
-    assert set(f) == {4, 5}  # the bundle has no runs here
+    assert set(f) == {4, 5, 9}  # the bundle has no runs here
     # the lost seed widens the ATE CI past fault 4's gap: open, not closed
     assert f[4]["ci"]["half"] > gm.FAULTS[4]["gap"]
     assert f[4]["outcome"] == "open: CI wider than the gap"
@@ -171,30 +173,181 @@ def test_written_file_round_trips(tmp_path):
     gm._write(str(out), done, ["parity", "ns16-m50-map10-lm8"], quiet=True)
     got = json.loads(out.read_text())
     assert len(got["runs"]) == 16 and list(got["summary"]) == ["parity"]
-    assert set(got["faults"]) == {"4", "5"}
+    assert set(got["faults"]) == {"4", "5", "9"}
     assert math.isclose(got["summary"]["parity"]["ate_rmse_m"]["code"]["diff"],
                         np.mean(B) - np.mean(A))
 
 
+@pytest.mark.parametrize("shape", ["small", "full"])
 @pytest.mark.parametrize("name,sets", [("parity", []), ("ns16-m50-map10-lm8", []),
                                        ("lm-track", ["use_gt_camera=true"]),
                                        ("ns16", ["use_gt_camera=true"])])
-def test_both_packages_build_one_config(name, sets, monkeypatch):
-    """The shape the tool compares at (``--small``, 16 frames; 8 for the
-    fault-7 preset) with its overrides: the tool's own for dnsjax, the
-    port's ``apply_overrides`` for the port."""
+def test_both_packages_build_one_config(name, sets, shape, monkeypatch):
+    """The shapes the tool compares at (``--small``, 16 frames, 8 for the
+    fault-7 preset; ``full``, the gate's 680x1200 and 40 frames) with its
+    overrides: the tool's own for dnsjax, the port's ``apply_overrides``
+    for the port."""
     monkeypatch.chdir(ROOT)
     abq = _load("abq_script", "scripts", "ab_quality.py")
-    frames = 8 if sets else 16
+    small = shape == "small"
+    frames = (8 if sets else 16) if small else 40
     for seed in (0, 5):
-        want = gm._apply_sets(abq.build_variant_cfg(name, abq.VARIANTS[name], frames, True,
+        want = gm._apply_sets(abq.build_variant_cfg(name, abq.VARIANTS[name], frames, small,
                                                     seed), sets)
-        got = apply_overrides(tab.build_variant_cfg(name, tab.VARIANTS[name], frames, True,
+        got = apply_overrides(tab.build_variant_cfg(name, tab.VARIANTS[name], frames, small,
                                                     seed), sets)
         assert got == want
-        assert got["cam"]["H"] == 170 and got["mapping"]["n_pixels"] == 1000
-        assert got["tracking"]["n_pixels"] == 300
+        hw, px = ((170, 300), (1000, 300)) if small else ((680, 1200), (2000, 500))
+        assert (got["cam"]["H"], got["cam"]["W"]) == hw
+        assert (got["mapping"]["n_pixels"], got["tracking"]["n_pixels"]) == px
+        assert got["synthetic"]["n_frames"] == frames
         assert got.get("use_gt_camera", False) == bool(sets)
+
+
+def test_full_shape_scores_the_gates_frames():
+    frames, every = gm.SHAPES["full"]
+    assert list(range(4, frames, every)) == [4, 11, 18, 25, 32, 39]
+    assert gm.SHAPES["small"] == (16, 3)
+
+
+def test_key_keeps_two_shapes_apart():
+    small = dict(package="port", device="cuda", variant="parity", seed=0, frames=16)
+    full = dict(small, shape="full", frames=40)
+    assert gm._key(small) != gm._key(full)
+    assert gm._key(small) == gm._key(dict(small, shape="small"))  # rows before shapes
+
+
+def test_merge_of_two_shapes_writes_nothing(tmp_path):
+    out, full = tmp_path / "gm.json", tmp_path / "full.json"
+    runs = _runs("parity", "dnsjax:cpu", A, [31.0] * 8)
+    for r in runs:
+        r["frames"] = 16
+    text = json.dumps(dict(runs=runs))
+    out.write_text(text)
+    full.write_text(json.dumps(dict(runs=[dict(r, shape="full", frames=40) for r in runs])))
+    with pytest.raises(SystemExit, match="shapes"):
+        gm.main(["--report-only", "--out", str(out), "--merge", str(full)])
+    assert out.read_text() == text
+    # a run at the full shape into a file of small runs is refused before it starts
+    with pytest.raises(SystemExit, match="shapes"):
+        gm.main(["--out", str(out), "--shape", "full", "--columns", "dnsjax:cpu",
+                 "--variants", "parity", "--seeds", "0"])
+    # one shape alone reads, its summary from its own runs
+    gm.main(["--report-only", "--out", str(full)])
+    got = json.loads(full.read_text())
+    assert got["summary"]["parity"]["ate_rmse_m"]["columns"]["dnsjax:cpu"]["n"] == 8
+
+
+@pytest.mark.parametrize("ci,want", [
+    (dict(lo=-1.3, hi=-0.2, half=0.55), "reproduced"),  # the port lower
+    (dict(lo=0.1, hi=0.9, half=0.4), "open: opposite"),
+    (dict(lo=-0.3, hi=0.5, half=0.4), "closed"),
+    (dict(lo=-1.28, hi=2.71, half=1.995), "open: CI wider than the gap"),  # --small, 8 seeds
+])
+def test_fault_9_outcome(ci, want):
+    f = gm.FAULTS[9]
+    assert (f["variant"], f["metric"], f["sign"], f["gap"], f["favourable"]) == (
+        "parity", "psnr_db", -1, 0.57, False)
+    assert gm.decide(ci, f["sign"], f["gap"], f["favourable"]) == want
+
+
+def _lost_runs():
+    # port:cuda loses 4 of 12 seeds, dnsjax 1 of 12; 0.040 itself is kept
+    dj = [0.015 + 0.001 * i for i in range(11)] + [0.0401]
+    pc = [0.016, 0.040, 0.012, 0.05, 0.3, 0.018, 0.09, 0.014, 0.2, 0.017, 0.013, 0.011]
+    runs = (_runs("parity", "dnsjax:cpu", dj, [31.0 + 0.2 * i for i in range(12)])
+            + _runs("parity", "port:cuda", pc, [30.5 + 0.3 * i for i in range(12)]))
+    for r in runs[12:17]:
+        r["ate_max_m"] = 2 * r["ate_rmse_m"]  # older rows lack it
+    return runs, dj, pc
+
+
+def test_lost_track_reading():
+    runs, dj, pc = _lost_runs()
+    assert gm.LOST_M == 0.040
+    got = gm.lost_track(runs)["parity"]
+    assert set(got) == {"total"}  # no port:cpu column here
+    e = got["total"]
+    assert e["n"] == {"port:cuda": 12, "dnsjax:cpu": 12}
+    assert e["lost"] == {"port:cuda": 4, "dnsjax:cpu": 1}
+    assert e["p"] == pytest.approx(stats.fisher_exact([[4, 8], [1, 11]])[1], rel=1e-12)
+    assert e["count"] == "not reproduced"  # p ~ 0.32
+    assert [s for s, _, _ in e["lost_seeds"]["port:cuda"]] == [3, 4, 6, 8]
+    assert [s for s, _, _ in e["lost_seeds"]["dnsjax:cpu"]] == [11]
+    kp = [r for r in runs if r["package"] == "port" and r["ate_rmse_m"] <= 0.040]
+    kd = [r for r in runs if r["package"] == "dnsjax" and r["ate_rmse_m"] <= 0.040]
+    assert len(kp) == 8 and len(kd) == 11
+    for m in ("ate_rmse_m", "depth_l1_cm", "psnr_db"):
+        assert e["kept"][m] == gm.welch([r[m] for r in kp], [r[m] for r in kd])
+    # part 2 decides unless part 1 reproduces
+    for k in (4, 5, 9):
+        f = gm.FAULTS[k]
+        want = gm.decide(e["kept"][f["metric"]], f["sign"], f["gap"], f["favourable"])
+        assert e["faults"][k] == ("reproduced: loses track" if e["count"] == "reproduced"
+                                  else want)
+
+
+@pytest.mark.parametrize("lost_port,lost_dj,want", [
+    (9, 1, "reproduced"),      # p < 0.05, the port loses more
+    (1, 9, "not reproduced"),  # p < 0.05, dnsjax loses more
+    (3, 2, "not reproduced"),  # p ~ 1
+])
+def test_lost_count_rule(lost_port, lost_dj, want):
+    runs = (_runs("parity", "port:cuda", [0.3] * lost_port + [0.02] * (12 - lost_port),
+                  [31.0] * 12)
+            + _runs("parity", "dnsjax:cpu", [0.3] * lost_dj + [0.02] * (12 - lost_dj),
+                    [31.0] * 12))
+    e = gm.lost_track(runs)["parity"]["total"]
+    assert e["p"] == pytest.approx(stats.fisher_exact(
+        [[lost_port, 12 - lost_port], [lost_dj, 12 - lost_dj]])[1], rel=1e-12)
+    assert e["count"] == want
+
+
+def test_rows_without_ate_max_read(tmp_path, capsys):
+    runs, _, _ = _lost_runs()
+    e = gm.lost_track(runs)["parity"]["total"]
+    maxes = {s: mx for c in e["lost_seeds"].values() for s, _, mx in c}
+    assert maxes[4] == pytest.approx(0.6) and maxes[11] is None
+    out = tmp_path / "gm.json"
+    out.write_text(json.dumps(dict(runs=runs)))
+    gm.main(["--report-only", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert "s4 0.3000 (0.6000)" in text and "s11 0.0401" in text
+    assert json.loads(out.read_text())["lost_track"]["parity"]["total"]["lost"][
+        "dnsjax:cpu"] == 1
+
+
+def test_range_reading_at_the_full_shape(tmp_path):
+    runs = (_runs("ns16-m50-map10-lm8", "dnsjax:cpu", [0.012, 0.013, 0.014, 0.5],
+                  [31.4, 31.5, 31.45, 20.0])
+            + _runs("ns16-m50-map10-lm8", "port:cuda", [0.017, 0.018, 0.019],
+                    [30.0, 30.1, 30.2])
+            + _runs("ns16-m50-map10-lm8", "port:cpu", [0.012, 0.013], [31.4, 31.5]))
+    got = gm.ranges(runs)["ns16-m50-map10-lm8"]
+    assert set(got) == {"dnsjax:cpu", "port:cuda"}  # port:cpu lacks seed 2
+    for c, e in got.items():
+        rs = [r for r in runs if f"{r['package']}:{r['device']}" == c and r["seed"] < 3]
+        assert e["means"] == {m: pytest.approx(np.mean([r[m] for r in rs]))
+                              for m in gm.METRICS}
+        assert e["inside"] == tab.in_jax_range("ns16-m50-map10-lm8@kf", e["means"])
+    assert got["dnsjax:cpu"]["inside"]["psnr_db"] and got["dnsjax:cpu"]["inside"]["ate_rmse_m"]
+    assert not got["port:cuda"]["inside"]["psnr_db"]
+    # written only for a file of the full shape
+    for shape, want in (("small", set()), ("full", {"ns16-m50-map10-lm8"})):
+        out = tmp_path / f"{shape}.json"
+        out.write_text(json.dumps(dict(runs=[dict(r, shape=shape) for r in runs])))
+        gm.main(["--report-only", "--out", str(out)])
+        assert set(json.loads(out.read_text())["ranges"]) == want
+
+
+def test_keep_poses():
+    class Slam:
+        def run(self):
+            return "est", "gt"
+
+    kept = []
+    gm._keep_poses(Slam, kept)
+    assert Slam().run() == ("est", "gt") and kept == ["est", "gt"]
 
 
 def test_the_port_does_not_import_the_tool():

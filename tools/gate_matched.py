@@ -4,7 +4,7 @@ its CPU?
 
     python tools/gate_matched.py [--variants parity,ns16-m50-map10-lm8]
         [--columns dnsjax:cpu,port:cpu,port:cuda] [--seeds 0-7]
-        [--frames 16] [--eval-every 3] [--set KEY=VALUE ...]
+        [--shape small|full] [--frames N] [--eval-every E] [--set KEY=VALUE ...]
         [--jobs 3] [--threads 2] [--out output/gate_matched.json]
         [--runs DIR] [--merge OTHER.json ...] [--report-only]
         [--preset fault7]
@@ -16,9 +16,13 @@ run_variant`` under ``JAX_PLATFORMS=cpu``; the port runs
 the card: the encode's and the table gradient's wrappers replaced by their
 plain PyTorch versions, or the LM tracker's 7x7 solve made on the host's
 LAPACK; they tell the kernels and the solver from the rest of the card's
-arithmetic). Every run is ``--small`` (170x300, 1000 mapping and 300 tracking
-rays), tracked unless ``--set use_gt_camera=true``, and scored on the
-``@kf`` protocol over frames 4, 4 + e, ... < frames. One subprocess a
+arithmetic). Every run is at ``--shape small`` (``--small``: 170x300, 1000
+mapping and 300 tracking rays; by default 16 frames, every third scored)
+or ``full`` (the gate's own 680x1200, 2000 and 500 rays; by default 40
+frames, every seventh scored), tracked unless
+``--set use_gt_camera=true``, and scored on the ``@kf`` protocol over frames
+4, 4 + e, ... < frames. A file holds runs of one shape and frame count: a
+merge or a run that would mix two is refused. One subprocess a
 (package, device, variant, seed), each pinned to ``--threads`` cores of its
 own so parallel jobs do not oversubscribe the host, its run under
 ``--runs`` (default ``output/<out's stem>/``). Runs start in the order of
@@ -38,7 +42,16 @@ of the medians. The port's CPU and CUDA generators draw different streams, so th
 are compared as distributions, never seed by seed. ``FAULTS`` holds the
 open gate faults and ``decide`` their closure rule: reproduced when the CI
 excludes 0 in the fault's direction, not a port difference when it holds 0
-and its half-width is below the gap that opened the fault, else open.
+and its half-width is below the gap that opened the fault, else open;
+each fault is read on every contrast its file has. A run also records its
+ATE's largest error (``ate_max_m``; older rows lack it). The lost-track
+reading (``lost_track``): a seed whose ATE RMSE exceeds ``LOST_M`` lost
+track; for each contrast the count of lost seeds in both columns with a
+two-sided Fisher exact test (the port losing more at p < 0.05 reproduces),
+and the Welch CI over the seeds that kept track under ``decide``. A fault
+closes on it only when the count does not reproduce and the CI closes. At
+the full shape the report adds whether each column's mean over the gate's
+seeds 0-2 lies in the JAX package's range (the port's ``in_jax_range``).
 
 ``--preset fault7`` is the GT-pose depth-L1 comparison of the 16-sample
 axis: ``--variants lm-track,ns16 --set use_gt_camera=true --frames 8
@@ -61,6 +74,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METRICS = ("ate_rmse_m", "psnr_db", "depth_l1_cm", "miou")
+# A shape's default frames and eval_every: the full shape scores frames 4,
+# 11, ..., 39, as the gate does
+SHAPES = {"small": (16, 3), "full": (40, 7)}
+# A seed whose ATE RMSE (m) is above this lost track: about twice the top of
+# parity's JAX range (0.0191 m)
+LOST_M = 0.040
 COLUMNS = ("dnsjax:cpu", "port:cpu", "port:cuda", "port:cuda-plain", "port:cuda-hostsolve")
 # (name, a, b): the difference a - b of the means, a and b columns; "total"
 # is the gate's own comparison (the port on the card against dnsjax) at one
@@ -79,7 +98,8 @@ PRESETS = {
 # the port's 3-seed card mean and the JAX range's nearer end that opened it,
 # and whether the fault is in the port's favour (then a difference in its
 # direction closes it too). Fault 8's own gap (0.00003 m) is below what any
-# run resolves, so it is judged on fault 4's ATE gap.
+# run resolves, so it is judged on fault 4's ATE gap. Fault 9's gap is
+# 31.336 - 30.768 dB.
 FAULTS = {
     4: dict(variant="parity", metric="ate_rmse_m", sign=+1, gap=0.0034, favourable=False),
     5: dict(variant="parity", metric="depth_l1_cm", sign=-1, gap=0.086, favourable=True),
@@ -87,6 +107,7 @@ FAULTS = {
             favourable=False),
     8: dict(variant="ns16-m50-map10-lm8", metric="ate_rmse_m", sign=+1, gap=0.0034,
             favourable=False),
+    9: dict(variant="parity", metric="psnr_db", sign=-1, gap=0.57, favourable=False),
 }
 
 
@@ -155,18 +176,88 @@ def summarise(runs: list, variants=None) -> dict:
 
 
 def faults(summary: dict) -> dict:
-    """{fault: dict(variant, metric, ci, outcome)} for each of ``FAULTS``
-    whose variant has a code contrast in ``summary``."""
+    """{fault: dict(variant, metric, ..., contrasts={contrast: dict(ci,
+    outcome)}, and the ci and outcome of its code contrast, else of its
+    total)} for each of ``FAULTS`` whose variant has a code, device or
+    total contrast in ``summary``."""
     res = {}
     for k, f in FAULTS.items():
-        ci = summary.get(f["variant"], {}).get(f["metric"], {}).get("code")
-        if ci is not None:
-            res[k] = dict(f, ci=ci, outcome=decide(ci, f["sign"], f["gap"], f["favourable"]))
+        e = summary.get(f["variant"], {}).get(f["metric"], {})
+        by = {name: dict(ci=e[name], outcome=decide(e[name], f["sign"], f["gap"],
+                                                     f["favourable"]))
+              for name, _, _ in CONTRASTS[:3] if name in e}
+        if by:
+            res[k] = dict(f, **by.get("code", by.get("total", next(iter(by.values())))),
+                          contrasts=by)
     return res
 
 
-def report(summary: dict, fault_rows: dict) -> str:
-    """The markdown tables of ``summary`` and the faults' outcomes."""
+def lost_track(runs: list) -> dict:
+    """{variant: {contrast: dict(n, lost, p, count, lost_seeds, kept,
+    faults)}} for the code, device and total contrasts whose columns both
+    have runs: ``lost`` counts the seeds above ``LOST_M`` in each column,
+    ``p`` is the two-sided Fisher exact test of the two counts, ``count``
+    is ``reproduced`` when p < 0.05 and the port's column (the first) loses
+    the larger share; ``kept`` holds the Welch CIs of ATE, depth L1 and PSNR
+    over the seeds that kept track (two a column at least), and ``faults``
+    each fault's outcome: the count's when it reproduces, else ``decide``'s
+    on the kept seeds."""
+    from scipy import stats
+
+    out = {}
+    for v in sorted({r["variant"] for r in runs}):
+        col = {}
+        for r in runs:
+            if r["variant"] == v:
+                col.setdefault(f"{r['package']}:{r['device']}", []).append(r)
+        out[v] = {}
+        for name, a, b in CONTRASTS[:3]:
+            if a not in col or b not in col:
+                continue
+            lost = {c: [r for r in col[c] if r["ate_rmse_m"] > LOST_M] for c in (a, b)}
+            kept = {c: [r for r in col[c] if r["ate_rmse_m"] <= LOST_M] for c in (a, b)}
+            n = {c: len(col[c]) for c in (a, b)}
+            la, lb = len(lost[a]), len(lost[b])
+            p = float(stats.fisher_exact([[la, n[a] - la], [lb, n[b] - lb]])[1])
+            count = "reproduced" if p < 0.05 and la / n[a] > lb / n[b] else "not reproduced"
+            ci = {m: welch([r[m] for r in kept[a]], [r[m] for r in kept[b]])
+                  for m in ("ate_rmse_m", "depth_l1_cm", "psnr_db")
+                  if min(len(kept[a]), len(kept[b])) >= 2}
+            out[v][name] = dict(
+                n=n, lost={c: len(lost[c]) for c in (a, b)}, p=p, count=count,
+                lost_seeds={c: [[r["seed"], r["ate_rmse_m"], r.get("ate_max_m")]
+                                for r in lost[c]] for c in (a, b)},
+                kept=ci,
+                faults={k: "reproduced: loses track" if count == "reproduced" else
+                        decide(ci[f["metric"]], f["sign"], f["gap"], f["favourable"])
+                        for k, f in FAULTS.items()
+                        if f["variant"] == v and f["metric"] in ci})
+    return out
+
+
+def ranges(runs: list) -> dict:
+    """{variant: {column: dict(means, inside)}}: each column's mean over the
+    gate's seeds 0-2 and whether it lies in the JAX package's 3-seed range
+    (the port's ``in_jax_range``), for the columns that have all three."""
+    sys.path.insert(0, ROOT)
+    from dnsjax_torch.eval.ab_quality import in_jax_range
+
+    out = {}
+    for r0 in runs:
+        v, c = r0["variant"], f"{r0['package']}:{r0['device']}"
+        rs = [r for r in runs if r["variant"] == v and f"{r['package']}:{r['device']}" == c
+              and r["seed"] in (0, 1, 2)]
+        if len(rs) == 3:
+            means = {m: float(np.mean([r[m] for r in rs])) for m in METRICS}
+            inside = in_jax_range(v + "@kf", means)
+            if inside is not None:
+                out.setdefault(v, {})[c] = dict(means=means, inside=inside)
+    return out
+
+
+def report(summary: dict, fault_rows: dict, lost: dict = None, rng: dict = None) -> str:
+    """The markdown tables of ``summary``, the faults' outcomes, and where
+    given the lost-track reading and the range reading."""
     lines = ["| variant | metric | column | n | mean | SD | median | min..max |",
              "|---|---|---|---|---|---|---|---|"]
     for v, ms in summary.items():
@@ -190,12 +281,44 @@ def report(summary: dict, fault_rows: dict) -> str:
                 if name in e:
                     lines.append(f"| {v} | {m} | {name} | {e[name]:+.4g} | | |")
     if fault_rows:
-        lines += ["", "| fault | variant | metric | code CI | gap | outcome |",
-                  "|---|---|---|---|---|---|"]
+        lines += ["", "| fault | variant | metric | contrast | CI | half-width | gap | outcome |",
+                  "|---|---|---|---|---|---|---|---|"]
         for k, f in fault_rows.items():
-            lines.append(f"| {k} | {f['variant']} | {f['metric']} | "
-                         f"[{f['ci']['lo']:+.4g}, {f['ci']['hi']:+.4g}] | {f['gap']} | "
-                         f"{f['outcome']} |")
+            for name, c in f["contrasts"].items():
+                lines.append(f"| {k} | {f['variant']} | {f['metric']} | {name} | "
+                             f"[{c['ci']['lo']:+.4g}, {c['ci']['hi']:+.4g}] | "
+                             f"{c['ci']['half']:.3g} | {f['gap']} | {c['outcome']} |")
+    if lost:
+        lines += ["", f"Lost track: ATE RMSE above {LOST_M} m (seed, RMSE, max).", "",
+                  "| variant | contrast | lost / n | Fisher p | count | lost seeds |",
+                  "|---|---|---|---|---|---|"]
+        for v, cs in lost.items():
+            for name, e in cs.items():
+                seeds = "; ".join(f"{c} " + ", ".join(
+                    f"s{s} {a:.4f}" + (f" ({mx:.4f})" if mx is not None else "")
+                    for s, a, mx in ls) for c, ls in e["lost_seeds"].items() if ls)
+                lines.append(f"| {v} | {name} | " + " vs ".join(
+                    f"{e['lost'][c]}/{e['n'][c]}" for c in e["n"])
+                    + f" | {e['p']:.3g} | {e['count']} | {seeds} |")
+        lines += ["", "| variant | contrast | metric (kept seeds) | diff of means | "
+                  "Welch 95 % CI | half-width | faults |", "|---|---|---|---|---|---|---|"]
+        for v, cs in lost.items():
+            for name, e in cs.items():
+                for m, ci in e["kept"].items():
+                    fs = ", ".join(f"{k}: {o}" for k, o in e["faults"].items()
+                                   if FAULTS[k]["metric"] == m)
+                    lines.append(f"| {v} | {name} | {m} | {ci['diff']:+.4g} | "
+                                 f"[{ci['lo']:+.4g}, {ci['hi']:+.4g}] | {ci['half']:.3g} | "
+                                 f"{fs} |")
+    if rng:
+        lines += ["", "Mean of seeds 0-2 against the JAX package's range (in / OUT).", "",
+                  "| variant | column | " + " | ".join(METRICS) + " |",
+                  "|---|---|" + "---|" * len(METRICS)]
+        for v, cs in rng.items():
+            for c, e in cs.items():
+                lines.append(f"| {v} | {c} | " + " | ".join(
+                    f"{e['means'][m]:.5g} {'in' if e['inside'][m] else 'OUT'}"
+                    for m in METRICS) + " |")
     return "\n".join(lines)
 
 
@@ -237,12 +360,25 @@ def _host_solve():
 _DIAGNOSTIC = {"cuda-plain": _plain_kernels, "cuda-hostsolve": _host_solve}
 
 
+def _keep_poses(cls, kept: list):
+    """``cls.run`` made to keep the (estimated, GT) poses it returns in
+    ``kept``."""
+    run = cls.run
+
+    def keep(self, *a, **kw):
+        kept[:] = run(self, *a, **kw)
+        return tuple(kept)
+
+    cls.run = keep
+
+
 def _one(pkg: str, device: str, name: str, seed: int, frames: int, eval_every: int,
-         out: str, sets) -> dict:
+         out: str, sets, small: bool = True) -> dict:
     """One run in this process, its outputs under ``out``; returns
-    run_variant's dict."""
+    run_variant's dict with ``ate_max_m``, the largest error of its ATE."""
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
+    kept = []
     if pkg == "dnsjax":
         sys.path.insert(0, os.path.join(ROOT, "scripts"))
         import ab_quality as ab
@@ -257,20 +393,27 @@ def _one(pkg: str, device: str, name: str, seed: int, frames: int, eval_every: i
             def __init__(self, cfg, output_dir=None):
                 super().__init__(cfg, output_dir=out)
 
+        _keep_poses(Here, kept)
         ab.build_variant_cfg, jdrv.DNSSLAM = build_set, Here
         os.system = lambda cmd: 0  # run_variant empties its fixed dir first
-        return ab.run_variant(name, ab.VARIANTS[name], frames, True, eval_every, seed=seed,
-                              protocol="kf")
+        r = ab.run_variant(name, ab.VARIANTS[name], frames, small, eval_every, seed=seed,
+                           protocol="kf")
+        from dnsjax.eval.ate import evaluate_ate
+        return dict(r, ate_max_m=evaluate_ate(*kept)["absolute_translational_error.max"])
     import torch
 
+    import dnsjax_torch.slam.driver as tdrv
     from dnsjax_torch.eval import ab_quality as ab
+    from dnsjax_torch.eval.ate import evaluate_ate
 
     torch.set_num_threads(len(os.sched_getaffinity(0)))
     if device in _DIAGNOSTIC:
         _DIAGNOSTIC[device]()
         device = "cuda"
-    return ab.run_variant(name, ab.VARIANTS[name], frames, True, eval_every, seed=seed,
-                          protocol="kf", device=device, out=out, sets=list(sets))
+    _keep_poses(tdrv.DNSSLAM, kept)
+    r = ab.run_variant(name, ab.VARIANTS[name], frames, small, eval_every, seed=seed,
+                       protocol="kf", device=device, out=out, sets=list(sets))
+    return dict(r, ate_max_m=evaluate_ate(*kept)["absolute_translational_error.max"])
 
 
 def _child(argv: list, cores, what: str) -> dict:
@@ -296,15 +439,17 @@ def _run_dir(args, pkg: str, device: str, name: str, seed: int) -> str:
 def _spawn(column: str, name: str, seed: int, args, cores) -> dict:
     """One run of ``column`` in a child process; its result row."""
     pkg, device = column.split(":")
-    argv = ["--one", column, name, str(seed), "--frames", str(args.frames), "--eval-every",
-            str(args.eval_every), "--run-dir", _run_dir(args, pkg, device, name, seed)]
+    argv = ["--one", column, name, str(seed), "--shape", args.shape, "--frames",
+            str(args.frames), "--eval-every", str(args.eval_every), "--run-dir",
+            _run_dir(args, pkg, device, name, seed)]
     for item in args.set:
         argv += ["--set", item]
     t0 = time.perf_counter()
     r = _child(argv, cores, f"{column} {name} seed {seed}")
     r.update(package=pkg, device=device, variant=name, seed=seed,
              process_s=round(time.perf_counter() - t0, 1), threads=len(cores),
-             frames=args.frames, eval_every=args.eval_every, sets=list(args.set))
+             shape=args.shape, frames=args.frames, eval_every=args.eval_every,
+             sets=list(args.set))
     print(json.dumps(r), flush=True)
     return r
 
@@ -318,8 +463,13 @@ def _seeds(text: str) -> list:
     return out
 
 
+def _shape(r: dict) -> tuple:
+    """A row's shape and frame count (rows before shapes were small)."""
+    return (r.get("shape", "small"), r.get("frames"))
+
+
 def _key(r: dict) -> tuple:
-    return (r["package"], r["device"], r["variant"], r["seed"])
+    return (r["package"], r["device"], r["variant"], r["seed"]) + _shape(r)
 
 
 def main(argv=None):
@@ -328,8 +478,10 @@ def main(argv=None):
     ap.add_argument("--variants", type=str, default="parity,ns16-m50-map10-lm8")
     ap.add_argument("--columns", type=str, default=",".join(COLUMNS[:3]))
     ap.add_argument("--seeds", type=str, default="0-7")
-    ap.add_argument("--frames", type=int, default=16)
-    ap.add_argument("--eval-every", type=int, default=3)
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="small",
+                    help="small: --small (170x300); full: the gate's 680x1200")
+    ap.add_argument("--frames", type=int, default=None, help="default: the shape's")
+    ap.add_argument("--eval-every", type=int, default=None, help="default: the shape's")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="a config override of every run (both packages)")
     ap.add_argument("--jobs", type=int, default=3)
@@ -347,13 +499,16 @@ def main(argv=None):
     if args.preset:  # the preset's values, under the options given
         ap.set_defaults(**PRESETS[args.preset])
         args = ap.parse_args(argv)
+    frames, every = SHAPES[args.shape]
+    args.frames = frames if args.frames is None else args.frames
+    args.eval_every = every if args.eval_every is None else args.eval_every
     if args.one:
         column, name, seed = args.one
         if args.cores:
             os.sched_setaffinity(0, [int(c) for c in args.cores.split(",")])
         pkg, device = column.split(":")
         r = _one(pkg, device, name, int(seed), args.frames, args.eval_every, args.run_dir,
-                 args.set)
+                 args.set, small=args.shape == "small")
         print("GMRESULT " + json.dumps(r), flush=True)
         return r
     done = {}
@@ -367,7 +522,10 @@ def main(argv=None):
     if args.report_only:
         return _write(args.out, done, variants)
     todo = [(c, v, s) for c in args.columns.split(",") for v in variants
-            for s in _seeds(args.seeds) if (*c.split(":"), v, s) not in done]
+            for s in _seeds(args.seeds)
+            if (*c.split(":"), v, s, args.shape, args.frames) not in done]
+    if todo:
+        _one_shape(list(done.values()) + [dict(shape=args.shape, frames=args.frames)])
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     cores = sorted(os.sched_getaffinity(0))
     slots = [cores[(i * args.threads) % len(cores):][:args.threads] for i in range(args.jobs)]
@@ -392,17 +550,31 @@ def main(argv=None):
     return _write(args.out, done, variants)
 
 
+def _one_shape(runs: list):
+    """Refuse runs of more than one shape and frame count in one file."""
+    shapes = sorted({_shape(r) for r in runs}, key=str)
+    if len(shapes) > 1:
+        raise SystemExit(f"runs of {len(shapes)} shapes (shape, frames) {shapes}: "
+                         "one file holds one")
+
+
 def _write(path: str, done: dict, variants, quiet: bool = False) -> dict:
-    """Write every run so far, their summary and the faults' outcomes to
-    ``path``; print the report unless ``quiet``; return the summary."""
+    """Write every run so far, their summary, the faults' outcomes, the
+    lost-track reading and, at the full shape, the range reading to
+    ``path``; print the report unless ``quiet``; return the summary. Runs of
+    two shapes are refused and nothing is written."""
     runs = sorted(done.values(), key=_key)
+    _one_shape(runs)
     summary = summarise(runs, [v for v in variants if any(r["variant"] == v for r in runs)])
     fault_rows = faults(summary)
+    lost = lost_track(runs)
+    rng = ranges(runs) if runs and _shape(runs[0])[0] == "full" else {}
     with open(path, "w") as f:
         json.dump(dict(runs=runs, summary=summary, faults={str(k): v for k, v in
-                                                             fault_rows.items()}), f, indent=1)
+                                                           fault_rows.items()},
+                       lost_track=lost, ranges=rng), f, indent=1)
     if not quiet:
-        print(report(summary, fault_rows), flush=True)
+        print(report(summary, fault_rows, lost, rng), flush=True)
     return summary
 
 
