@@ -6,7 +6,9 @@ shapes it compares at: both packages' ``build_variant_cfg`` give one config
 for each variant at ``--small --frames 16`` and at the gate's own 680x1200,
 40 frames, with the tool's overrides applied; a file never mixes two
 shapes. Also the lost-track reading (the count's Fisher test, the CI over
-the kept seeds) and the range reading. CPU only, a few seconds."""
+the kept seeds), each fault headlined on the reading that decides it, the
+seeds a column an open fault would need, and the range reading. CPU only,
+a few seconds."""
 
 import importlib.util
 import json
@@ -90,6 +92,8 @@ def test_summary_log_ate_medians_and_faults():
     summary = gm.summarise(runs)
     ate = summary["parity"]["ate_rmse_m"]
     assert set(ate["columns"]) == {"dnsjax:cpu", "port:cpu", "port:cuda"}
+    assert ate["code"]["n"] == [8, 8] and ate["code"]["sd"] == pytest.approx(
+        [np.std(lost, ddof=1), np.std(A, ddof=1)], rel=1e-12)
     assert ate["columns"]["port:cpu"]["max"] == 0.4
     assert ate["code"]["diff"] == pytest.approx(np.mean(lost) - np.mean(A))
     assert ate["code_log"]["diff"] == pytest.approx(np.mean(np.log(lost)) - np.mean(np.log(A)))
@@ -99,9 +103,13 @@ def test_summary_log_ate_medians_and_faults():
     assert ate["total_median"] == pytest.approx(0.0, abs=1e-15)
     assert "code_log" not in summary["parity"]["psnr_db"]
     assert summary["parity"]["psnr_db"]["code"]["diff"] == pytest.approx(0.1)
-    f = gm.faults(summary)
+    f = gm.faults(summary, gm.lost_track(runs))
     assert set(f) == {4, 5, 9}  # the bundle has no runs here
-    # the lost seed widens the ATE CI past fault 4's gap: open, not closed
+    # the lost seed widens the code CI past fault 4's gap: open, not closed
+    assert f[4]["readings"]["code"]["ci"]["half"] > gm.FAULTS[4]["gap"]
+    assert f[4]["readings"]["code"]["outcome"] == "open: CI wider than the gap"
+    # the deciding reading, the total over the kept seeds, is 8 seeds wide
+    assert f[4]["reading"] == "lost-track total"
     assert f[4]["ci"]["half"] > gm.FAULTS[4]["gap"]
     assert f[4]["outcome"] == "open: CI wider than the gap"
     report = gm.report(summary, f)
@@ -124,9 +132,13 @@ def test_report_only_rebuilds_the_summary_from_the_runs(tmp_path):
     assert [r["ate_rmse_m"] for r in got["runs"] if r["package"] == "port"] == A
     ate = got["summary"]["parity"]["ate_rmse_m"]
     assert ate["code"]["diff"] == pytest.approx(0.0, abs=1e-15)
-    assert got["faults"]["4"]["ci"] == ate["code"]
-    assert got["faults"]["4"]["outcome"] == "open: CI wider than the gap"
-    assert got["faults"]["5"]["outcome"] == "closed"
+    code = {k: got["faults"][k]["readings"]["code"] for k in ("4", "5")}
+    assert code["4"]["ci"] == ate["code"]
+    assert code["4"]["outcome"] == "open: CI wider than the gap"
+    assert code["5"]["outcome"] == "closed"
+    # no card column: the reading that decides parity's faults is missing
+    assert got["faults"]["4"]["outcome"] == "undecided: no lost-track total"
+    assert got["faults"]["4"]["ci"] is None
 
 
 def test_contrast_needs_two_seeds_a_column():
@@ -357,3 +369,96 @@ def test_the_port_does_not_import_the_tool():
                 with open(os.path.join(dirpath, f)) as fh:
                     text = fh.read()
                 assert "gate_matched" not in text and "import tools" not in text, f
+
+
+def _three_columns(variant, port_cpu, dnsjax, card):
+    return (_runs(variant, "port:cpu", *port_cpu) + _runs(variant, "dnsjax:cpu", *dnsjax)
+            + _runs(variant, "port:cuda", *card))
+
+
+def _both_variants():
+    """Parity with a lost seed in each column and the bundle with none, in
+    three columns."""
+    rng = np.random.default_rng(12)
+    runs = []
+    for v, ate, psnr in (("parity", 0.018, 32.5), ("ns16-m50-map10-lm8", 0.013, 30.5)):
+        cols = []
+        for n in (6, 30, 40):
+            a = list(ate + 0.003 * rng.standard_normal(n))
+            if v == "parity":
+                a[1] = 0.2
+            cols.append((a, list(psnr + rng.standard_normal(n))))
+        runs += _three_columns(v, *cols)
+    return runs
+
+
+@pytest.mark.parametrize("k", sorted(gm.FAULTS))
+def test_headline_is_the_deciding_reading(k):
+    """Each fault's headline (ci, outcome, needed) is its deciding reading's,
+    named; every other reading is listed beside it."""
+    runs = _both_variants()
+    summary, lost = gm.summarise(runs), gm.lost_track(runs)
+    f = gm.faults(summary, lost)[k]
+    name = gm.FAULTS[k]["reading"]
+    assert name == ("total" if gm.FAULTS[k]["variant"] == "ns16-m50-map10-lm8"
+                    else "lost-track total")
+    assert f["reading"] == name
+    assert {x: f[x] for x in ("ci", "outcome", "needed")} == f["readings"][name]
+    assert set(f["readings"]) == {p + c for p in ("", "lost-track ")
+                                  for c in ("code", "device", "total")}
+    metric = gm.FAULTS[k]["metric"]
+    if name == "total":
+        assert f["ci"] == summary[f["variant"]][metric]["total"]
+    else:
+        assert f["ci"] == lost["parity"]["total"]["kept"][metric]
+        assert f["outcome"] == lost["parity"]["total"]["faults"][k]
+    text = gm.report(summary, gm.faults(summary, lost), lost)
+    head = text[text.index("Each fault on the reading"):text.index("Every reading")]
+    assert f"| {k} | {f['variant']} | {metric} | {name} |" in head
+    assert sum(ln.startswith(f"| {k} |") for ln in head.splitlines()) == 1
+
+
+def test_total_closes_while_thin_code_is_open():
+    """A thin port CPU column leaves the code contrast open; the headline is
+    the total, which closes, as fault 6's reading says."""
+    rng = np.random.default_rng(3)
+    psnr = lambda mu, sd, n: list(mu + sd * rng.standard_normal(n))  # noqa: E731
+    runs = _three_columns("ns16-m50-map10-lm8", ([0.013] * 3, psnr(30.5, 1.5, 3)),
+                          ([0.013] * 40, psnr(30.5, 1.0, 40)),
+                          ([0.013] * 120, psnr(30.5, 1.0, 120)))
+    f = gm.faults(gm.summarise(runs), gm.lost_track(runs))[6]
+    assert f["readings"]["code"]["outcome"] == "open: CI wider than the gap"
+    assert f["readings"]["code"]["needed"] is not None
+    assert f["reading"] == "total" and f["outcome"] == "closed" and f["needed"] is None
+
+
+@pytest.mark.parametrize("n,sd,gap,want", [
+    # equal SDs, equal columns: half = t(2j - 2) sqrt(2 / j); t(14) = 2.1448
+    # gives 1.072 at j = 8, t(16) = 2.1199 gives 0.9994 at j = 9
+    ([5, 5], [1.0, 1.0], 1.0, [9, 9]),
+    # 2:1 seeds: half = t(df) sqrt(1.5 / j); at j = 7, df = 12.10 and t = 2.177
+    # give 1.008, at j = 8, df = 14.10 and t = 2.143 give 0.928
+    ([32, 16], [1.0, 1.0], 1.0, [16, 8]),
+    ([16, 32], [1.0, 1.0], 1.0, [8, 16]),
+    # a gap no count reaches
+    ([5, 5], [1.0, 1.0], 0.0, None),
+])
+def test_seeds_needed_by_hand(n, sd, gap, want):
+    assert gm.seeds_needed(dict(n=n, sd=sd), gap, limit=2000) == want
+    if want:  # samples of those SDs at those counts make a CI that just closes
+        z = [np.arange(c) - (c - 1) / 2 for c in want]
+        ci = gm.welch(*(s * x / np.std(x, ddof=1) for s, x in zip(sd, z)))
+        assert ci["sd"] == pytest.approx(sd, rel=1e-12) and ci["n"] == want
+        assert ci["half"] < gap
+
+
+def test_seeds_needed_scales_lost_track_to_all_seeds():
+    """A lost-track reading's count is in seeds, its kept count over each
+    column's kept share (the port's CPU keeps 5 of 6, dnsjax 29 of 30)."""
+    runs = _both_variants()
+    lost = gm.lost_track(runs)
+    r = gm.faults(gm.summarise(runs), lost)[9]["readings"]["lost-track code"]
+    assert lost["parity"]["code"]["lost"] == {"port:cpu": 1, "dnsjax:cpu": 1}
+    assert r["outcome"] == "open: CI wider than the gap" and r["ci"]["n"] == [5, 29]
+    kept = gm.seeds_needed(r["ci"], gm.FAULTS[9]["gap"])
+    assert r["needed"] == [math.ceil(kept[0] * 6 / 5), math.ceil(kept[1] * 30 / 29)]

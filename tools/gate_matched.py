@@ -49,7 +49,11 @@ reading (``lost_track``): a seed whose ATE RMSE exceeds ``LOST_M`` lost
 track; for each contrast the count of lost seeds in both columns with a
 two-sided Fisher exact test (the port losing more at p < 0.05 reproduces),
 and the Welch CI over the seeds that kept track under ``decide``. A fault
-closes on it only when the count does not reproduce and the CI closes. At
+closes on it only when the count does not reproduce and the CI closes.
+Each fault is headlined on the one reading that decides it (``FAULTS``'
+``reading``), every other reading listed below it; beside an open fault,
+the seeds a column its SDs would need for a CI narrower than its gap, at
+the ratio of seeds the columns have (``seeds_needed``). At
 the full shape the report adds whether each column's mean over the gate's
 seeds 0-2 lies in the JAX package's range (the port's ``in_jax_range``).
 
@@ -97,17 +101,23 @@ PRESETS = {
 # the port-minus-dnsjax difference that would reproduce it, the gap between
 # the port's 3-seed card mean and the JAX range's nearer end that opened it,
 # and whether the fault is in the port's favour (then a difference in its
-# direction closes it too). Fault 8's own gap (0.00003 m) is below what any
-# run resolves, so it is judged on fault 4's ATE gap. Fault 9's gap is
-# 31.336 - 30.768 dB.
+# direction closes it too), and the reading that decides it: a contrast
+# ("total") or the lost-track reading of one ("lost-track total"), fixed
+# before the runs that read it. Fault 8's own gap (0.00003 m) is below what
+# any run resolves, so it is judged on fault 4's ATE gap. Fault 9's gap is
+# 31.336 - 30.768 dB. Parity loses track on some seeds in both packages, so
+# its faults are read on the seeds that kept track; no bundle seed has.
 FAULTS = {
-    4: dict(variant="parity", metric="ate_rmse_m", sign=+1, gap=0.0034, favourable=False),
-    5: dict(variant="parity", metric="depth_l1_cm", sign=-1, gap=0.086, favourable=True),
+    4: dict(variant="parity", metric="ate_rmse_m", sign=+1, gap=0.0034, favourable=False,
+            reading="lost-track total"),
+    5: dict(variant="parity", metric="depth_l1_cm", sign=-1, gap=0.086, favourable=True,
+            reading="lost-track total"),
     6: dict(variant="ns16-m50-map10-lm8", metric="psnr_db", sign=-1, gap=0.78,
-            favourable=False),
+            favourable=False, reading="total"),
     8: dict(variant="ns16-m50-map10-lm8", metric="ate_rmse_m", sign=+1, gap=0.0034,
-            favourable=False),
-    9: dict(variant="parity", metric="psnr_db", sign=-1, gap=0.57, favourable=False),
+            favourable=False, reading="total"),
+    9: dict(variant="parity", metric="psnr_db", sign=-1, gap=0.57, favourable=False,
+            reading="lost-track total"),
 }
 
 
@@ -121,17 +131,40 @@ def describe(xs) -> dict:
 
 def welch(a, b, level: float = 0.95) -> dict:
     """The difference of the means mean(a) - mean(b) with its Welch CI (the
-    Welch-Satterthwaite degrees of freedom)."""
+    Welch-Satterthwaite degrees of freedom), and each side's count and SD."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    sd = [float(a.std(ddof=1)), float(b.std(ddof=1))]
+    diff = float(a.mean() - b.mean())
+    half, df = (float(x) for x in _half_width(sd, [a.size, b.size], level))
+    return dict(diff=diff, lo=diff - half, hi=diff + half, half=half, df=df,
+                n=[int(a.size), int(b.size)], sd=sd)
+
+
+def _half_width(sd, n, level: float = 0.95):
+    """The Welch half-width and degrees of freedom of two samples of SDs
+    ``sd`` and counts ``n`` (each an array of such pairs, or one pair)."""
     from scipy import stats
 
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    va, vb = a.var(ddof=1) / a.size, b.var(ddof=1) / b.size
-    se = math.sqrt(va + vb)
-    df = (va + vb) ** 2 / (va ** 2 / (a.size - 1) + vb ** 2 / (b.size - 1)) if se > 0 \
-        else float(a.size + b.size - 2)
-    diff = float(a.mean() - b.mean())
-    half = float(stats.t.ppf(0.5 + level / 2, df) * se)
-    return dict(diff=diff, lo=diff - half, hi=diff + half, half=half, df=float(df))
+    va, vb = (np.square(s) / np.asarray(k, np.float64) for s, k in zip(sd, n))
+    se = np.sqrt(va + vb)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        df = np.where(se > 0, (va + vb) ** 2 / (va ** 2 / (np.asarray(n[0]) - 1)
+                                                + vb ** 2 / (np.asarray(n[1]) - 1)),
+                      np.asarray(n[0]) + np.asarray(n[1]) - 2.0)
+    return stats.t.ppf(0.5 + level / 2, df) * se, df
+
+
+def seeds_needed(ci: dict, gap: float, limit: int = 100_000):
+    """The fewest seeds a column, at the ratio of ``ci``'s own counts (its
+    ``n``), at which a Welch CI of ``ci``'s SDs would be narrower than
+    ``gap``: [n_a, n_b], or None if more than ``limit`` would not do."""
+    (na, nb), sd = ci["n"], ci["sd"]
+    fewer = np.arange(2, limit + 1)  # the smaller column's count
+    more = np.maximum(2, np.rint(fewer * max(na, nb) / min(na, nb)))
+    n = (more, fewer) if na >= nb else (fewer, more)
+    half, _ = _half_width(sd, n)
+    hit = np.flatnonzero(half < gap)
+    return [int(n[0][hit[0]]), int(n[1][hit[0]])] if hit.size else None
 
 
 def decide(ci: dict, sign: int, gap: float, favourable: bool = False) -> str:
@@ -175,20 +208,37 @@ def summarise(runs: list, variants=None) -> dict:
     return out
 
 
-def faults(summary: dict) -> dict:
-    """{fault: dict(variant, metric, ..., contrasts={contrast: dict(ci,
-    outcome)}, and the ci and outcome of its code contrast, else of its
-    total)} for each of ``FAULTS`` whose variant has a code, device or
-    total contrast in ``summary``."""
+def faults(summary: dict, lost: dict = None) -> dict:
+    """{fault: dict(variant, metric, ..., readings={reading: dict(ci,
+    outcome, needed)}, and the ci, outcome and needed of its deciding
+    reading, ``FAULTS``' ``reading``)} for each of ``FAULTS`` that has a
+    reading in ``summary`` (the code, device and total contrasts) or
+    ``lost`` (``lost_track``'s, named "lost-track <contrast>"). Without
+    its deciding reading a fault is ``undecided``. ``needed`` is
+    ``seeds_needed``'s count for a CI wider than the gap, in seeds a column
+    (for a lost-track reading, its kept counts scaled by each column's kept
+    share), else None."""
     res = {}
     for k, f in FAULTS.items():
         e = summary.get(f["variant"], {}).get(f["metric"], {})
         by = {name: dict(ci=e[name], outcome=decide(e[name], f["sign"], f["gap"],
                                                      f["favourable"]))
               for name, _, _ in CONTRASTS[:3] if name in e}
+        share = {}  # a lost-track reading's kept share of each column
+        for name, t in (lost or {}).get(f["variant"], {}).items():
+            if f["metric"] in t["kept"]:
+                by["lost-track " + name] = dict(ci=t["kept"][f["metric"]], outcome=t["faults"][k])
+                share["lost-track " + name] = [(n - lo) / n for n, lo in
+                                               zip(t["n"].values(), t["lost"].values())]
+        for name, r in by.items():
+            need = (seeds_needed(r["ci"], f["gap"])
+                    if r["outcome"] == "open: CI wider than the gap" else None)
+            r["needed"] = need and [math.ceil(x / s) for x, s in
+                                    zip(need, share.get(name, (1.0, 1.0)))]
         if by:
-            res[k] = dict(f, **by.get("code", by.get("total", next(iter(by.values())))),
-                          contrasts=by)
+            head = by.get(f["reading"], dict(ci=None, outcome=f"undecided: no {f['reading']}",
+                                             needed=None))
+            res[k] = dict(f, **head, readings=by)
     return res
 
 
@@ -281,13 +331,22 @@ def report(summary: dict, fault_rows: dict, lost: dict = None, rng: dict = None)
                 if name in e:
                     lines.append(f"| {v} | {m} | {name} | {e[name]:+.4g} | | |")
     if fault_rows:
-        lines += ["", "| fault | variant | metric | contrast | CI | half-width | gap | outcome |",
-                  "|---|---|---|---|---|---|---|---|"]
-        for k, f in fault_rows.items():
-            for name, c in f["contrasts"].items():
-                lines.append(f"| {k} | {f['variant']} | {f['metric']} | {name} | "
-                             f"[{c['ci']['lo']:+.4g}, {c['ci']['hi']:+.4g}] | "
-                             f"{c['ci']['half']:.3g} | {f['gap']} | {c['outcome']} |")
+        def row(k, f, name, c):
+            ci = c["ci"]
+            return (f"| {k} | {f['variant']} | {f['metric']} | {name} | "
+                    + (f"[{ci['lo']:+.4g}, {ci['hi']:+.4g}] | {ci['half']:.3g} | "
+                       if ci else "| | ")
+                    + f"{f['gap']} | {c['outcome']} | "
+                    + ("" if c["needed"] is None else " vs ".join(map(str, c["needed"])))
+                    + " |")
+
+        head = ["| fault | variant | metric | reading | CI | half-width | gap | outcome | "
+                "seeds a column to close (a vs b) |", "|---|---|---|---|---|---|---|---|---|"]
+        lines += ["", "Each fault on the reading that decides it:", ""] + head + [
+            row(k, f, f["reading"], f) for k, f in fault_rows.items()]
+        lines += ["", "Every reading of each fault:", ""] + head + [
+            row(k, f, name, c) for k, f in fault_rows.items()
+            for name, c in f["readings"].items()]
     if lost:
         lines += ["", f"Lost track: ATE RMSE above {LOST_M} m (seed, RMSE, max).", "",
                   "| variant | contrast | lost / n | Fisher p | count | lost seeds |",
@@ -566,8 +625,8 @@ def _write(path: str, done: dict, variants, quiet: bool = False) -> dict:
     runs = sorted(done.values(), key=_key)
     _one_shape(runs)
     summary = summarise(runs, [v for v in variants if any(r["variant"] == v for r in runs)])
-    fault_rows = faults(summary)
     lost = lost_track(runs)
+    fault_rows = faults(summary, lost)
     rng = ranges(runs) if runs and _shape(runs[0])[0] == "full" else {}
     with open(path, "w") as f:
         json.dump(dict(runs=runs, summary=summary, faults={str(k): v for k, v in
