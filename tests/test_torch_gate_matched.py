@@ -7,8 +7,13 @@ for each variant at ``--small --frames 16`` and at the gate's own 680x1200,
 40 frames, with the tool's overrides applied; a file never mixes two
 shapes. Also the lost-track reading (the count's Fisher test, the CI over
 the kept seeds), each fault headlined on the reading that decides it, the
-seeds a column an open fault would need, and the range reading. CPU only,
-a few seconds."""
+seeds a column an open fault would need, and the range reading. And the
+kernels reading: the card's runs against the same seeds with the kernels'
+plain versions, paired seed by seed (the paired CI against scipy's, the
+discordant lost-track pairs' binomial test, the closure rule on both
+sides), fault 8 decided at its second look's level, and the rows whose
+kernel launch counts contradict their column refused. CPU only, a few
+seconds."""
 
 import importlib.util
 import json
@@ -407,13 +412,14 @@ def test_headline_is_the_deciding_reading(k):
     assert set(f["readings"]) == {p + c for p in ("", "lost-track ")
                                   for c in ("code", "device", "total")}
     metric = gm.FAULTS[k]["metric"]
-    if name == "total":
-        assert f["ci"] == summary[f["variant"]][metric]["total"]
+    if name == "total":  # at the fault's own level (fault 8's second look)
+        assert f["ci"] == gm.welch_at(summary[f["variant"]][metric]["total"],
+                                      gm.FAULTS[k].get("level", 0.95))
     else:
         assert f["ci"] == lost["parity"]["total"]["kept"][metric]
         assert f["outcome"] == lost["parity"]["total"]["faults"][k]
     text = gm.report(summary, gm.faults(summary, lost), lost)
-    head = text[text.index("Each fault on the reading"):text.index("Every reading")]
+    head = text[text.index("Each fault on the reading"):text.index("| variant | metric | column")]
     assert f"| {k} | {f['variant']} | {metric} | {name} |" in head
     assert sum(ln.startswith(f"| {k} |") for ln in head.splitlines()) == 1
 
@@ -462,3 +468,197 @@ def test_seeds_needed_scales_lost_track_to_all_seeds():
     assert r["outcome"] == "open: CI wider than the gap" and r["ci"]["n"] == [5, 29]
     kept = gm.seeds_needed(r["ci"], gm.FAULTS[9]["gap"])
     assert r["needed"] == [math.ceil(kept[0] * 6 / 5), math.ceil(kept[1] * 30 / 29)]
+
+
+X = [31.2, 30.8, 32.0, 29.9, 31.5, 30.2, 31.9, 30.6, 31.1]
+Y = [31.0, 30.9, 31.6, 30.1, 31.0, 30.4, 31.8, 30.1, 31.3]
+
+
+@pytest.mark.parametrize("level", [0.95, 0.975])
+def test_paired_ci_matches_scipy(level):
+    ci = gm.paired(dict(enumerate(X)), dict(enumerate(Y)), level)
+    ref = stats.ttest_rel(X, Y).confidence_interval(level)
+    assert ci["diff"] == pytest.approx(np.mean(np.subtract(X, Y)), rel=1e-12)
+    assert (ci["lo"], ci["hi"]) == pytest.approx((ref.low, ref.high), rel=1e-9)
+    assert ci["half"] == pytest.approx((ci["hi"] - ci["lo"]) / 2, rel=1e-12)
+    assert (ci["n"], ci["df"], ci["unpaired"]) == (9, 8, [0, 0])
+    assert ci["sd"] == pytest.approx(np.std(np.subtract(X, Y), ddof=1), rel=1e-12)
+
+
+def test_pairing_takes_the_seeds_both_columns_have():
+    a = {s: x for s, x in zip(range(9), X)}
+    b = {s + 2: y for s, y in zip(range(9), Y)}  # seeds 2-10
+    ci = gm.paired(a, b)
+    both = range(2, 9)
+    ref = stats.ttest_rel([a[s] for s in both], [b[s] for s in both]).confidence_interval()
+    assert (ci["lo"], ci["hi"]) == pytest.approx((ref.low, ref.high), rel=1e-9)
+    assert ci["n"] == 7 and ci["unpaired"] == [2, 2]
+    # and through the kernels reading, which names the unpaired runs a column
+    runs = (_runs("ns16-m50-map10-lm8", "port:cuda", [0.015] * 9, X)
+            + _runs("ns16-m50-map10-lm8", "port:cuda-plain", [0.015] * 7, Y[:7],
+                    seeds=range(2, 9)))
+    e = gm.kernels_paired(runs)["ns16-m50-map10-lm8"]
+    assert (e["pairs"], e["kept"], e["unpaired"], e["lost"]) == (7, 7, [2, 0], None)
+    assert e["metrics"]["psnr_db"]["ci"] == gm.paired(
+        {s: X[s] for s in both}, {s: Y[s - 2] for s in both})
+
+
+@pytest.mark.parametrize("lost_a,lost_b,want", [
+    ({1, 2, 3, 4, 5, 6, 7, 8, 9}, {9}, "reproduced"),  # the kernels lose 8 more, p ~ 0.008
+    ({9}, {1, 2, 3, 4, 5, 6, 7, 8, 9}, "not reproduced"),  # the plain versions lose more
+    ({1, 2, 3}, {3, 4}, "not reproduced"),
+    (set(), set(), "not reproduced"),
+])
+def test_discordant_pairs_match_binomtest(lost_a, lost_b, want):
+    d = gm.discordant(lost_a, lost_b)
+    only = [len(lost_a - lost_b), len(lost_b - lost_a)]
+    assert d["only"] == only and d["both"] == len(lost_a & lost_b)
+    assert d["p"] == (pytest.approx(stats.binomtest(only[0], sum(only)).pvalue, rel=1e-12)
+                      if sum(only) else 1.0)
+    assert d["count"] == want
+
+
+@pytest.mark.parametrize("ci,gap,want", [
+    (dict(lo=0.0004, hi=0.0030, half=0.0013), 0.0034, "reproduced"),  # the kernels higher
+    (dict(lo=-0.9, hi=-0.1, half=0.4), 0.57, "reproduced"),  # lower: either side reproduces
+    (dict(lo=-0.0015, hi=0.0017, half=0.0016), 0.0034, "closed"),
+    (dict(lo=-0.05, hi=0.04, half=0.045), 0.086, "closed"),
+    (dict(lo=-0.7, hi=0.5, half=0.6), 0.57, "open: CI wider than the gap"),
+    (dict(lo=-0.01, hi=0.02, half=0.015), None, "reported"),  # mIoU: no fault, no gap
+])
+def test_kernels_closure_rule_on_both_sides(ci, gap, want):
+    assert gm.decide_either(ci, gap) == want
+
+
+def _kernel_runs():
+    """Parity and the bundle in both kernel columns, 24 seeds: the plain
+    column a little off the card's, parity's seed 3 lost by both, 5 by the
+    card alone, 7 by the plain versions alone."""
+    rng = np.random.default_rng(13)
+    runs = []
+    for v in ("parity", "ns16-m50-map10-lm8"):
+        ate = 0.017 + 0.003 * rng.standard_normal(24)
+        psnr = 31.0 + rng.standard_normal(24)
+        for c, shift in (("port:cuda", 0.0), ("port:cuda-plain", 1.0)):
+            a = ate + 0.0005 * shift + 0.0004 * rng.standard_normal(24)
+            if v == "parity":
+                a[3] = 0.2
+                a[5 if c == "port:cuda" else 7] = 0.1
+            runs += _runs(v, c, list(a), list(psnr + 0.05 * shift
+                                              + 0.1 * rng.standard_normal(24)))
+    return runs
+
+
+def test_kernels_reading_reads_parity_on_kept_pairs():
+    runs = _kernel_runs()
+    got = gm.kernels_paired(runs)
+    par, bun = got["parity"], got["ns16-m50-map10-lm8"]
+    assert (par["pairs"], par["kept"]) == (24, 21) and (bun["pairs"], bun["kept"]) == (24, 24)
+    assert par["lost"]["only"] == [1, 1] and par["lost"]["both"] == 1
+    assert par["lost"]["count"] == "not reproduced"
+    col = lambda v, c: {r["seed"]: r for r in runs  # noqa: E731
+                        if r["variant"] == v and f"{r['package']}:{r['device']}" == c}
+    for v, e, keep in (("parity", par, set(range(24)) - {3, 5, 7}),
+                       ("ns16-m50-map10-lm8", bun, set(range(24)))):
+        a, b = col(v, "port:cuda"), col(v, "port:cuda-plain")
+        for m in gm.METRICS:
+            r = e["metrics"][m]
+            assert r["ci"] == gm.paired({s: a[s][m] for s in keep}, {s: b[s][m] for s in keep})
+            gap = {(f["variant"], f["metric"]): f["gap"] for f in gm.FAULTS.values()}.get((v, m))
+            assert r["gap"] == gap and r["outcome"] == gm.decide_either(r["ci"], gap)
+    # the gaps of the decided readings; mIoU and the bundle's depth L1 only reported
+    assert [par["metrics"][m]["gap"] for m in ("ate_rmse_m", "depth_l1_cm", "psnr_db")] == [
+        0.0034, 0.086, 0.57]
+    assert [bun["metrics"][m]["gap"] for m in ("psnr_db", "ate_rmse_m")] == [0.78, 0.0034]
+    assert bun["metrics"]["depth_l1_cm"]["outcome"] == "reported"
+    assert par["metrics"]["miou"]["outcome"] == "reported"
+    # the card's ATE sits 0.0005 m under the plain versions' on every pair
+    assert bun["metrics"]["ate_rmse_m"]["outcome"] == "reproduced"
+    assert bun["metrics"]["ate_rmse_m"]["ci"]["hi"] < 0
+
+
+def test_pairs_needed_by_hand():
+    # t(n - 1) sd / sqrt(n) < gap: at sd 1, gap 0.5, n = 18 gives
+    # 2.110 / 4.243 = 0.497, n = 17 gives 2.120 / 4.123 = 0.514
+    assert gm.pairs_needed(1.0, 0.5) == 18
+    assert gm.pairs_needed(1.0, 0.0, limit=100) is None
+
+
+def test_fault_8_is_decided_at_its_second_looks_level():
+    f8 = gm.FAULTS[8]
+    assert (f8["variant"], f8["metric"], f8["gap"], f8["reading"], f8["level"]) == (
+        "ns16-m50-map10-lm8", "ate_rmse_m", 0.0034, "total", 0.975)
+    assert all("level" not in f for k, f in gm.FAULTS.items() if k != 8)
+    rng = np.random.default_rng(8)
+    card, dj = 0.018 + 0.0075 * rng.standard_normal(72), 0.018 + 0.0054 * rng.standard_normal(28)
+    runs = (_runs("ns16-m50-map10-lm8", "port:cuda", list(np.abs(card)), [30.7] * 72)
+            + _runs("ns16-m50-map10-lm8", "dnsjax:cpu", list(np.abs(dj)), [30.7] * 28))
+    summary = gm.summarise(runs)
+    f = gm.faults(summary, gm.lost_track(runs))[8]
+    want = gm.welch(np.abs(card), np.abs(dj), 0.975)
+    assert f["ci"] == pytest.approx(want, rel=1e-12)
+    se = math.sqrt(np.var(np.abs(card), ddof=1) / 72 + np.var(np.abs(dj), ddof=1) / 28)
+    assert f["ci"]["half"] == pytest.approx(stats.t.ppf(0.9875, want["df"]) * se, rel=1e-12)
+    assert f["ci_95"] == summary["ns16-m50-map10-lm8"]["ate_rmse_m"]["total"]
+    assert f["ci"]["half"] > f["ci_95"]["half"]
+    assert f["outcome"] == gm.decide(f["ci"], +1, 0.0034)
+    # fault 6 on the same runs stays at 95 %
+    f6 = gm.faults(summary)[6]
+    assert f6["ci"] == summary["ns16-m50-map10-lm8"]["psnr_db"]["total"] and "ci_95" not in f6
+    text = gm.report(summary, gm.faults(summary))
+    assert "| 8 | ns16-m50-map10-lm8 | ate_rmse_m | total | 97.5%: [" in text
+    assert "(95 %: [" in text
+
+
+@pytest.mark.parametrize("device,launches,refused", [
+    ("cuda-plain", dict(encode=0, table_grad=0), False),
+    ("cuda-plain", dict(encode=3, table_grad=0), True),  # past the swap
+    ("cuda-plain", dict(encode=0, table_grad=1), True),
+    ("cuda", dict(encode=1200, table_grad=900), False),
+    ("cuda", dict(encode=0, table_grad=0), True),  # a card row that ran no kernel
+    ("cuda", dict(encode=1200, table_grad=0), True),
+    ("cuda", None, False),  # rows before the counts read as before
+    ("cpu", dict(encode=0, table_grad=0), False),
+])
+def test_rows_whose_launches_contradict_their_column_are_refused(tmp_path, device, launches,
+                                                                refused):
+    runs = _runs("parity", "port:cuda", A, [31.0] * 8) + _runs(
+        "parity", "port:" + device, B, [31.0] * 8, seeds=range(8, 16) if device == "cuda"
+        else None)
+    if launches is not None:
+        runs[-1]["launches"] = launches
+    out = tmp_path / "gm.json"
+    out.write_text(json.dumps(dict(runs=runs)))
+    before = out.read_text()
+    if refused:
+        with pytest.raises(SystemExit, match="launches"):
+            gm.main(["--report-only", "--out", str(out)])
+        assert out.read_text() == before
+    else:
+        gm.main(["--report-only", "--out", str(out)])
+        assert len(json.loads(out.read_text())["runs"]) == 16
+
+
+def test_report_headlines_the_kernels_reading(tmp_path, capsys):
+    runs = _kernel_runs() + _runs("parity", "dnsjax:cpu", A + B, [31.0] * 16)
+    out = tmp_path / "gm.json"
+    out.write_text(json.dumps(dict(runs=runs)))
+    gm.main(["--report-only", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert text.startswith("Kernels paired: port:cuda - port:cuda-plain")
+    head = text[:text.index("| variant | metric | column")]
+    assert head.index("Kernels paired") < head.index("Each fault on the reading")
+    got = json.loads(out.read_text())["kernels"]
+    for v, m in (("parity", "ate_rmse_m"), ("parity", "depth_l1_cm"), ("parity", "psnr_db"),
+                 ("ns16-m50-map10-lm8", "ate_rmse_m"), ("ns16-m50-map10-lm8", "psnr_db")):
+        r = got[v]["metrics"][m]
+        assert f"| {v} | {m} | {r['ci']['n']} of 24 " in head
+        assert f"| {r['gap']} | {r['outcome']} |" in head
+    assert "| parity | lost track, discordant (a only, b only; both) | 24 | 1 vs 1; 1 |" in head
+    # fault 9's code contrast beside the headline, deciding nothing
+    runs += _runs("parity", "port:cpu", A + B, [31.4] * 16)
+    out.write_text(json.dumps(dict(runs=runs)))
+    gm.main(["--report-only", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert "Also read, deciding nothing: fault 9's lost-track code (parity psnr_db, 16 vs 16" \
+        in text[:text.index("| variant | metric | column")]

@@ -53,9 +53,22 @@ closes on it only when the count does not reproduce and the CI closes.
 Each fault is headlined on the one reading that decides it (``FAULTS``'
 ``reading``), every other reading listed below it; beside an open fault,
 the seeds a column its SDs would need for a CI narrower than its gap, at
-the ratio of seeds the columns have (``seeds_needed``). At
+the ratio of seeds the columns have (``seeds_needed``). A fault looked at
+a second time is decided at its ``level`` (fault 8: 97.5 %), its 95 %
+reading beside it. At
 the full shape the report adds whether each column's mean over the gate's
 seeds 0-2 lies in the JAX package's range (the port's ``in_jax_range``).
+
+The kernels reading (``kernels_paired``, headlined first): ``port:cuda``
+against ``port:cuda-plain`` seed by seed. Both draw from one generator
+seeded from the run's seed on the card, and the kernels draw nothing, so
+the per-seed differences are paired (a Student-t CI of their mean); parity
+is read on the pairs where neither run lost track, beside the count of
+pairs where only one did (an exact binomial test, the McNemar test), the
+bundle on every pair. A kernel that moves quality either way computes
+something else than its plain version: ``decide_either``. Each port row
+records its kernels' launches (``launches``); a plain row that launched
+one, or a card row that did not launch both, is refused.
 
 ``--preset fault7`` is the GT-pose depth-L1 comparison of the 16-sample
 axis: ``--variants lm-track,ns16 --set use_gt_camera=true --frames 8
@@ -106,7 +119,9 @@ PRESETS = {
 # before the runs that read it. Fault 8's own gap (0.00003 m) is below what
 # any run resolves, so it is judged on fault 4's ATE gap. Fault 9's gap is
 # 31.336 - 30.768 dB. Parity loses track on some seeds in both packages, so
-# its faults are read on the seeds that kept track; no bundle seed has.
+# its faults are read on the seeds that kept track; the bundle's on every seed. A
+# fault looked at a second time is decided at a CI of its own ``level`` (the
+# 0.05 split over two looks; 0.95 without one), its 95 % reading beside it.
 FAULTS = {
     4: dict(variant="parity", metric="ate_rmse_m", sign=+1, gap=0.0034, favourable=False,
             reading="lost-track total"),
@@ -115,10 +130,18 @@ FAULTS = {
     6: dict(variant="ns16-m50-map10-lm8", metric="psnr_db", sign=-1, gap=0.78,
             favourable=False, reading="total"),
     8: dict(variant="ns16-m50-map10-lm8", metric="ate_rmse_m", sign=+1, gap=0.0034,
-            favourable=False, reading="total"),
+            favourable=False, reading="total", level=0.975),
     9: dict(variant="parity", metric="psnr_db", sign=-1, gap=0.57, favourable=False,
             reading="lost-track total"),
 }
+# Readings printed under the headline that decide no fault, fixed before
+# the runs that read them: fault 9's code contrast on the port's CPU column
+SIDE_READINGS = ((9, "lost-track code"),)
+# The kernels reading: the card's runs against the same runs with the
+# encode's and the table gradient's plain versions (the first column minus
+# the second), seed by seed: both draw from one generator seeded from the
+# run's seed on the card, and the kernels draw nothing
+KERNELS = next((a, b) for name, a, b in CONTRASTS if name == "kernels")
 
 
 def describe(xs) -> dict:
@@ -133,11 +156,15 @@ def welch(a, b, level: float = 0.95) -> dict:
     """The difference of the means mean(a) - mean(b) with its Welch CI (the
     Welch-Satterthwaite degrees of freedom), and each side's count and SD."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    sd = [float(a.std(ddof=1)), float(b.std(ddof=1))]
-    diff = float(a.mean() - b.mean())
-    half, df = (float(x) for x in _half_width(sd, [a.size, b.size], level))
-    return dict(diff=diff, lo=diff - half, hi=diff + half, half=half, df=df,
-                n=[int(a.size), int(b.size)], sd=sd)
+    return welch_at(dict(diff=float(a.mean() - b.mean()), n=[int(a.size), int(b.size)],
+                         sd=[float(a.std(ddof=1)), float(b.std(ddof=1))]), level)
+
+
+def welch_at(ci: dict, level: float) -> dict:
+    """``welch``'s dict from its difference, counts and SDs at ``level``."""
+    half, df = (float(x) for x in _half_width(ci["sd"], ci["n"], level))
+    return dict(diff=ci["diff"], lo=ci["diff"] - half, hi=ci["diff"] + half, half=half,
+                df=df, n=list(ci["n"]), sd=list(ci["sd"]))
 
 
 def _half_width(sd, n, level: float = 0.95):
@@ -154,15 +181,16 @@ def _half_width(sd, n, level: float = 0.95):
     return stats.t.ppf(0.5 + level / 2, df) * se, df
 
 
-def seeds_needed(ci: dict, gap: float, limit: int = 100_000):
+def seeds_needed(ci: dict, gap: float, limit: int = 100_000, level: float = 0.95):
     """The fewest seeds a column, at the ratio of ``ci``'s own counts (its
-    ``n``), at which a Welch CI of ``ci``'s SDs would be narrower than
-    ``gap``: [n_a, n_b], or None if more than ``limit`` would not do."""
+    ``n``), at which a Welch CI of ``ci``'s SDs at ``level`` would be
+    narrower than ``gap``: [n_a, n_b], or None if more than ``limit`` would
+    not do."""
     (na, nb), sd = ci["n"], ci["sd"]
     fewer = np.arange(2, limit + 1)  # the smaller column's count
     more = np.maximum(2, np.rint(fewer * max(na, nb) / min(na, nb)))
     n = (more, fewer) if na >= nb else (fewer, more)
-    half, _ = _half_width(sd, n)
+    half, _ = _half_width(sd, n, level)
     hit = np.flatnonzero(half < gap)
     return [int(n[0][hit[0]]), int(n[1][hit[0]])] if hit.size else None
 
@@ -180,6 +208,95 @@ def decide(ci: dict, sign: int, gap: float, favourable: bool = False) -> str:
     if max(lo, hi) < 0:
         return "open: opposite"
     return "closed" if ci["half"] < gap else "open: CI wider than the gap"
+
+
+def paired(a: dict, b: dict, level: float = 0.95) -> dict:
+    """The mean of the per-seed differences a[s] - b[s] over the seeds that
+    both ``a`` and ``b`` ({seed: value}) have, with its paired Student-t CI
+    at ``level`` (``n`` pairs, the differences' ``sd``); ``unpaired``
+    counts the seeds only one of them has, [a's, b's]."""
+    from scipy import stats
+
+    both = sorted(set(a) & set(b))
+    d = np.array([a[s] - b[s] for s in both], np.float64)
+    diff, sd = float(d.mean()), float(d.std(ddof=1))
+    half = float(stats.t.ppf(0.5 + level / 2, d.size - 1) * sd / math.sqrt(d.size))
+    return dict(diff=diff, lo=diff - half, hi=diff + half, half=half, df=d.size - 1,
+                n=d.size, sd=sd, unpaired=[len(set(a) - set(b)), len(set(b) - set(a))])
+
+
+def discordant(lost_a: set, lost_b: set) -> dict:
+    """The pairs of which only one run lost track (seeds in ``lost_a`` or
+    ``lost_b`` alone), [a's, b's], under the exact two-sided binomial
+    (McNemar) test; ``count`` is ``reproduced`` when p < 0.05 and a loses
+    more."""
+    from scipy import stats
+
+    only = [len(lost_a - lost_b), len(lost_b - lost_a)]
+    p = float(stats.binomtest(only[0], sum(only), 0.5).pvalue) if sum(only) else 1.0
+    return dict(only=only, both=len(lost_a & lost_b), p=p,
+                count="reproduced" if p < 0.05 and only[0] > only[1] else "not reproduced")
+
+
+def decide_either(ci: dict, gap) -> str:
+    """The kernels reading's closure rule: ``reproduced`` when the CI
+    excludes 0 on either side (a kernel that moves quality either way
+    computes something else than its plain version), ``closed`` when it
+    holds 0 with a half-width below ``gap``, else open; ``reported`` where
+    no fault gives a gap."""
+    if gap is None:
+        return "reported"
+    if ci["lo"] > 0 or ci["hi"] < 0:
+        return "reproduced"
+    return "closed" if ci["half"] < gap else "open: CI wider than the gap"
+
+
+def pairs_needed(sd: float, gap: float, limit: int = 100_000, level: float = 0.95):
+    """The fewest pairs at which a paired CI of differences of SD ``sd``
+    would be narrower than ``gap``, or None if more than ``limit`` would
+    not do."""
+    from scipy import stats
+
+    n = np.arange(2, limit + 1)
+    hit = np.flatnonzero(stats.t.ppf(0.5 + level / 2, n - 1) * sd / np.sqrt(n) < gap)
+    return int(n[hit[0]]) if hit.size else None
+
+
+def kernels_paired(runs: list) -> dict:
+    """{variant: dict(pairs, unpaired, kept, lost, metrics)} for each
+    variant that both ``KERNELS`` columns ran: ``metrics`` holds, for each
+    metric, ``paired``'s CI of the first column minus the second, the gap
+    of the fault on that variant and metric (None: reported, not decided),
+    ``decide_either``'s outcome and the seeds that would close an open one.
+    A variant whose faults are read on the seeds that kept track (parity)
+    is read on the pairs where neither run lost track (``kept`` of
+    ``pairs``), beside ``discordant``'s count of the others (``lost``);
+    any other on every pair."""
+    gaps = {(f["variant"], f["metric"]): f["gap"] for f in FAULTS.values()}
+    kept_only = {f["variant"] for f in FAULTS.values() if f["reading"].startswith("lost-track")}
+    out = {}
+    for v in sorted({r["variant"] for r in runs}):
+        col = {c: {r["seed"]: r for r in runs if r["variant"] == v
+                   and f"{r['package']}:{r['device']}" == c} for c in KERNELS}
+        seeds = sorted(set(col[KERNELS[0]]) & set(col[KERNELS[1]]))
+        if len(seeds) < 2:
+            continue
+        lost = [{s for s in seeds if col[c][s]["ate_rmse_m"] > LOST_M} for c in KERNELS]
+        use = [s for s in seeds if v not in kept_only or not (s in lost[0] or s in lost[1])]
+        e = dict(pairs=len(seeds), kept=len(use),
+                 unpaired=[len(set(col[c]) - set(seeds)) for c in KERNELS],
+                 lost=discordant(*lost) if v in kept_only else None, metrics={})
+        for m in METRICS:
+            if len(use) < 2 or not all(m in col[c][s] for c in KERNELS for s in use):
+                continue
+            ci = paired(*({s: col[c][s][m] for s in use} for c in KERNELS))
+            gap = gaps.get((v, m))
+            outcome = decide_either(ci, gap)
+            need = (pairs_needed(ci["sd"], gap) if outcome.startswith("open") else None)
+            e["metrics"][m] = dict(ci=ci, gap=gap, outcome=outcome,
+                                   needed=need and math.ceil(need * len(seeds) / len(use)))
+        out[v] = e
+    return out
 
 
 def summarise(runs: list, variants=None) -> dict:
@@ -221,17 +338,23 @@ def faults(summary: dict, lost: dict = None) -> dict:
     res = {}
     for k, f in FAULTS.items():
         e = summary.get(f["variant"], {}).get(f["metric"], {})
-        by = {name: dict(ci=e[name], outcome=decide(e[name], f["sign"], f["gap"],
-                                                     f["favourable"]))
-              for name, _, _ in CONTRASTS[:3] if name in e}
+        level = f.get("level", 0.95)
+        by = {}
+        for name, _, _ in CONTRASTS[:3]:
+            if name in e:
+                ci = welch_at(e[name], level)
+                by[name] = dict(ci=ci, outcome=decide(ci, f["sign"], f["gap"], f["favourable"]))
         share = {}  # a lost-track reading's kept share of each column
         for name, t in (lost or {}).get(f["variant"], {}).items():
             if f["metric"] in t["kept"]:
-                by["lost-track " + name] = dict(ci=t["kept"][f["metric"]], outcome=t["faults"][k])
+                ci = welch_at(t["kept"][f["metric"]], level)
+                by["lost-track " + name] = dict(ci=ci, outcome=(
+                    "reproduced: loses track" if t["count"] == "reproduced"
+                    else decide(ci, f["sign"], f["gap"], f["favourable"])))
                 share["lost-track " + name] = [(n - lo) / n for n, lo in
                                                zip(t["n"].values(), t["lost"].values())]
         for name, r in by.items():
-            need = (seeds_needed(r["ci"], f["gap"])
+            need = (seeds_needed(r["ci"], f["gap"], level=level)
                     if r["outcome"] == "open: CI wider than the gap" else None)
             r["needed"] = need and [math.ceil(x / s) for x, s in
                                     zip(need, share.get(name, (1.0, 1.0)))]
@@ -239,6 +362,8 @@ def faults(summary: dict, lost: dict = None) -> dict:
             head = by.get(f["reading"], dict(ci=None, outcome=f"undecided: no {f['reading']}",
                                              needed=None))
             res[k] = dict(f, **head, readings=by)
+            if level != 0.95 and head["ci"]:  # the 95 % reading beside it
+                res[k]["ci_95"] = welch_at(head["ci"], 0.95)
     return res
 
 
@@ -305,11 +430,63 @@ def ranges(runs: list) -> dict:
     return out
 
 
-def report(summary: dict, fault_rows: dict, lost: dict = None, rng: dict = None) -> str:
-    """The markdown tables of ``summary``, the faults' outcomes, and where
-    given the lost-track reading and the range reading."""
-    lines = ["| variant | metric | column | n | mean | SD | median | min..max |",
-             "|---|---|---|---|---|---|---|---|"]
+def _ci_text(ci: dict) -> str:
+    return f"[{ci['lo']:+.4g}, {ci['hi']:+.4g}] | {ci['half']:.3g}"
+
+
+def report(summary: dict, fault_rows: dict, lost: dict = None, rng: dict = None,
+           kernels: dict = None) -> str:
+    """The headline (where given, the kernels reading; each fault on the
+    reading that decides it; ``SIDE_READINGS``), then the markdown tables
+    of ``summary``, every reading of each fault, and where given the
+    lost-track reading and the range reading."""
+    lines = []
+    if kernels:
+        lines += [f"Kernels paired: {KERNELS[0]} - {KERNELS[1]}, seed by seed, paired "
+                  "95 % CI (parity on the pairs where neither lost track).", "",
+                  "| variant | metric | pairs (unpaired a, b) | mean diff | CI | half-width | "
+                  "gap | outcome | seeds to close |", "|---|---|---|---|---|---|---|---|---|"]
+        for v, e in kernels.items():
+            for m, r in e["metrics"].items():
+                gap = "" if r["gap"] is None else r["gap"]
+                lines.append(f"| {v} | {m} | {r['ci']['n']} of {e['pairs']} "
+                             f"({', '.join(map(str, e['unpaired']))}) | {r['ci']['diff']:+.4g} | "
+                             f"{_ci_text(r['ci'])} | {gap} | {r['outcome']} | "
+                             f"{r['needed'] or ''} |")
+            if e["lost"]:
+                d = e["lost"]
+                lines.append(f"| {v} | lost track, discordant (a only, b only; both) | "
+                             f"{e['pairs']} | {d['only'][0]} vs {d['only'][1]}; {d['both']} | "
+                             f"binomial p {d['p']:.3g} | | | {d['count']} | |")
+        lines.append("")
+    if fault_rows:
+        def row(k, f, name, c):
+            ci = c["ci"]
+            text = _ci_text(ci) if ci else "| "
+            if ci and f.get("level", 0.95) != 0.95:
+                text = (f"{f['level']:.1%}: [{ci['lo']:+.4g}, {ci['hi']:+.4g}]"
+                        + (f" (95 %: {_ci_text(c['ci_95']).replace(' | ', ', ')})"
+                           if "ci_95" in c else "") + f" | {ci['half']:.3g}")
+            return (f"| {k} | {f['variant']} | {f['metric']} | {name} | {text} | "
+                    + f"{f['gap']} | {c['outcome']} | "
+                    + ("" if c["needed"] is None else " vs ".join(map(str, c["needed"])))
+                    + " |")
+
+        head = ["| fault | variant | metric | reading | CI | half-width | gap | outcome | "
+                "seeds a column to close (a vs b) |", "|---|---|---|---|---|---|---|---|---|"]
+        lines += ["Each fault on the reading that decides it:", ""] + head + [
+            row(k, f, f["reading"], f) for k, f in fault_rows.items()]
+        for k, name in SIDE_READINGS:
+            if name not in fault_rows.get(k, {}).get("readings", {}):
+                continue
+            f, c = fault_rows[k], fault_rows[k]["readings"][name]
+            lines += ["", f"Also read, deciding nothing: fault {k}'s {name} ({f['variant']} "
+                      f"{f['metric']}, {' vs '.join(map(str, c['ci']['n']))} seeds): "
+                      f"{_ci_text(c['ci']).replace(' | ', ', half-width ')}, gap {f['gap']}: "
+                      f"{c['outcome']}."]
+        lines.append("")
+    lines += ["| variant | metric | column | n | mean | SD | median | min..max |",
+              "|---|---|---|---|---|---|---|---|"]
     for v, ms in summary.items():
         for m, e in ms.items():
             for c in COLUMNS:
@@ -331,19 +508,6 @@ def report(summary: dict, fault_rows: dict, lost: dict = None, rng: dict = None)
                 if name in e:
                     lines.append(f"| {v} | {m} | {name} | {e[name]:+.4g} | | |")
     if fault_rows:
-        def row(k, f, name, c):
-            ci = c["ci"]
-            return (f"| {k} | {f['variant']} | {f['metric']} | {name} | "
-                    + (f"[{ci['lo']:+.4g}, {ci['hi']:+.4g}] | {ci['half']:.3g} | "
-                       if ci else "| | ")
-                    + f"{f['gap']} | {c['outcome']} | "
-                    + ("" if c["needed"] is None else " vs ".join(map(str, c["needed"])))
-                    + " |")
-
-        head = ["| fault | variant | metric | reading | CI | half-width | gap | outcome | "
-                "seeds a column to close (a vs b) |", "|---|---|---|---|---|---|---|---|---|"]
-        lines += ["", "Each fault on the reading that decides it:", ""] + head + [
-            row(k, f, f["reading"], f) for k, f in fault_rows.items()]
         lines += ["", "Every reading of each fault:", ""] + head + [
             row(k, f, name, c) for k, f in fault_rows.items()
             for name, c in f["readings"].items()]
@@ -472,7 +636,10 @@ def _one(pkg: str, device: str, name: str, seed: int, frames: int, eval_every: i
     _keep_poses(tdrv.DNSSLAM, kept)
     r = ab.run_variant(name, ab.VARIANTS[name], frames, small, eval_every, seed=seed,
                        protocol="kf", device=device, out=out, sets=list(sets))
-    return dict(r, ate_max_m=evaluate_ate(*kept)["absolute_translational_error.max"])
+    from dnsjax_torch.ops import gather, scatter
+
+    return dict(r, ate_max_m=evaluate_ate(*kept)["absolute_translational_error.max"],
+                launches=dict(encode=gather.LAUNCHES, table_grad=scatter.LAUNCHES))
 
 
 def _child(argv: list, cores, what: str) -> dict:
@@ -599,6 +766,7 @@ def main(argv=None):
         finally:
             with lock:
                 free.append(slot)
+        _launches_refused([res])  # before it joins the file
         with lock:
             done[_key(res)] = res
             _write(args.out, done, variants, quiet=True)
@@ -617,23 +785,37 @@ def _one_shape(runs: list):
                          "one file holds one")
 
 
+def _launches_refused(runs: list):
+    """Refuse a ``port:cuda-plain`` row that launched a kernel (something
+    reaches one past ``_plain_kernels``) and a card row without a launch of
+    each kernel; older rows without counts read as before."""
+    bad = [_key(r) for r in runs if "launches" in r and (
+        (r["device"] == "cuda-plain" and any(r["launches"].values()))
+        or (r["device"] in ("cuda", "cuda-hostsolve") and not all(r["launches"].values())))]
+    if bad:
+        raise SystemExit(f"rows whose kernel launches contradict their column: {bad}")
+
+
 def _write(path: str, done: dict, variants, quiet: bool = False) -> dict:
     """Write every run so far, their summary, the faults' outcomes, the
-    lost-track reading and, at the full shape, the range reading to
-    ``path``; print the report unless ``quiet``; return the summary. Runs of
-    two shapes are refused and nothing is written."""
+    lost-track reading, the kernels reading and, at the full shape, the
+    range reading to ``path``; print the report unless ``quiet``; return
+    the summary. Runs of two shapes, or whose launches contradict their
+    column, are refused and nothing is written."""
     runs = sorted(done.values(), key=_key)
     _one_shape(runs)
+    _launches_refused(runs)
     summary = summarise(runs, [v for v in variants if any(r["variant"] == v for r in runs)])
     lost = lost_track(runs)
     fault_rows = faults(summary, lost)
+    kernels = kernels_paired(runs)
     rng = ranges(runs) if runs and _shape(runs[0])[0] == "full" else {}
     with open(path, "w") as f:
         json.dump(dict(runs=runs, summary=summary, faults={str(k): v for k, v in
                                                            fault_rows.items()},
-                       lost_track=lost, ranges=rng), f, indent=1)
+                       lost_track=lost, kernels=kernels, ranges=rng), f, indent=1)
     if not quiet:
-        print(report(summary, fault_rows, lost, rng), flush=True)
+        print(report(summary, fault_rows, lost, rng, kernels), flush=True)
     return summary
 
 
