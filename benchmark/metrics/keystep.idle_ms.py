@@ -1,0 +1,10 @@
+"""keystep.idle_ms: the device's idle time per traced frame while the host
+is in the program's ``keystep`` spans (window building and the mapping
+calls' launches), in ms: ``program_spans.idle_split`` over the traced
+frames."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    return program_spans.idle_ms(ctx, "keystep")

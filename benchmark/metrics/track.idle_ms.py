@@ -1,0 +1,9 @@
+"""track.idle_ms: the device's idle time per traced frame while the host is
+in the program's ``track`` spans (the tracker's launches and its one
+readback), in ms: ``program_spans.idle_split`` over the traced frames."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    return program_spans.idle_ms(ctx, "track")

@@ -51,14 +51,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      RMSE of the written model.npz, last keystep PSNR, the hooks' walls and
      the kernels' launch counts in that run; every ``track`` event of its
      ``metrics.jsonl`` with 12 finite floats of ``c2w`` and ``gt_c2w``, and
-     ``eval_ate``'s ``ate.png``; then a torch.profiler breakdown of one
-     mapping call and one tracked frame, with the port's kernels' device
-     time on the run's data;
+     ``eval_ate``'s ``ate.png``;
   3b. parity: the same scene at ``scripts/ab_quality.py``'s reference-parity
      settings (16 x 2 trilinear grid, exact float32 backward, float32
      compute, 4 feature taps, Adam tracking of 50 iterations, no early
-     exit), 8 frames: ATE and PSNR bounds, launches, then the profiler
-     breakdown (the table gradient must not run in an Adam-tracked frame);
+     exit), 8 frames: ATE and PSNR bounds, launches, then its last frame
+     tracked again, which must launch no table gradient;
   3c. resume: the textured run resumed from phase 3's ``model_20.npz`` with
      Adam tracking (patience 10) and ``grad_levels: 1``, frames 21-29: ATE
      and PSNR bounds, mean Adam iterations a frame; then the decoder warm-up
@@ -693,26 +691,29 @@ def plain_encode_shapes():
 
 
 def _reset_counts():
-    from dnsjax_torch.ops import gather, scatter
+    from dnsjax_torch import spans
 
-    gather.LAUNCHES = scatter.LAUNCHES = scatter.SORTED_LAUNCHES = 0
-    gather.SIDE_LAUNCHES = scatter.SIDE_LAUNCHES = 0
+    spans.clear()
 
 
 def _side_counts():
     """The launches of the encode and the table gradient since the reset
     that ran on another stream than the default (an asynchronous
     keystep's)."""
-    from dnsjax_torch.ops import gather, scatter
+    from dnsjax_torch import spans
 
-    return {"hash_encode_fwd": gather.SIDE_LAUNCHES, "scatter_add": scatter.SIDE_LAUNCHES}
+    c = spans.counters()
+    return {"hash_encode_fwd": c.get("encode.side_launches", 0),
+            "scatter_add": c.get("table_grad.side_launches", 0)}
 
 
 def _counts():
-    from dnsjax_torch.ops import gather, scatter
+    from dnsjax_torch import spans
 
-    return {"hash_encode_fwd": gather.LAUNCHES, "scatter_add": scatter.LAUNCHES,
-            "sorted_scatter_add": scatter.SORTED_LAUNCHES}
+    c = spans.counters()
+    return {"hash_encode_fwd": c.get("encode.launches", 0),
+            "scatter_add": c.get("table_grad.launches", 0),
+            "sorted_scatter_add": c.get("sorted_scatter.launches", 0)}
 
 
 # scripts/ab_quality.py's "parity" variant: the reference's grid, float32
@@ -830,8 +831,16 @@ def check_run_logs(slam):
 def run_parity(end_frame: int = 8):
     """Phase 3b: the reference-parity schedule, cut to ``end_frame``
     frames (the 500-iteration bootstrap, keysteps at 5, 10 and the last,
-    Adam-tracked frames 2 onwards)."""
-    return _drive("slam_parity", OUT_PARITY, PARITY_SETS, end_frame)[:2]
+    Adam-tracked frames 2 onwards); then its last frame tracked again,
+    which must launch no table gradient (the tracker's encode takes the
+    position gradient alone)."""
+    slam, launches = _drive("slam_parity", OUT_PARITY, PARITY_SETS, end_frame)[:2]
+    idx = min(end_frame, slam.n_img) - 1
+    _reset_counts()
+    slam.track_frame(idx, slam._frame_to_device(slam.dataset[idx]))
+    if _counts()["scatter_add"]:
+        raise AssertionError(f"a tracked frame ran the table gradient: {_counts()}")
+    return slam, launches
 
 
 def run_resume(end_frame: int = 30):
@@ -1770,51 +1779,6 @@ def run_scannet_keystep():
     return launches
 
 
-def profile_slam(slam, n_iters: int = 20, name: str = "slam", idx=None):
-    """torch.profiler over one mapping call of ``n_iters`` iterations and one
-    tracked frame (frame ``idx``, default the last) of the finished run:
-    wall, summed device time, device busy share and the top device kernels
-    by self time. A tracked frame must run no table gradient."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    if idx is None:
-        idx = len(slam.dataset) - 1
-    cur = slam._frame_to_device(slam.dataset[idx])
-    slam.map_once(idx, cur, 2, "global", False)  # warm the window caches
-    torch.cuda.synchronize()
-    phases = {
-        "keystep_call": lambda: slam.map_once(idx, cur, n_iters, "global", False),
-        "track_frame": lambda: slam.track_frame(idx, cur),
-    }
-    for phase, fn in phases.items():
-        _reset_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = _counts()
-        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-        dev_ms = sum(dev_us(e) for e in events) / 1e3
-        top = sorted(events, key=lambda e: -dev_us(e))[:12]
-        # the port's own kernels on the run's data: device ms, launches
-        ours = {k: [sum(dev_us(e) for e in events if k in e.key) / 1e3,
-                    sum(e.count for e in events if k in e.key)]
-                for k in ("hash_encode_fwd_kernel", "table_grad_kernel")}
-        print("profile " + json.dumps(dict(
-            run=name, phase=phase, frame=idx, iters=n_iters if phase == "keystep_call" else 1,
-            track_iters=slam.track_iters[-1] if phase == "track_frame" else None,
-            wall_ms=wall_ms, device_ms=dev_ms, device_busy_share=dev_ms / wall_ms,
-            kernel_launches=sum(e.count for e in events), port_kernels=ours,
-            wrapper_launches=launches,
-            top=[(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in top],
-        )), flush=True)
-        if phase == "track_frame" and (launches["scatter_add"] or ours["table_grad_kernel"][1]):
-            raise AssertionError(f"a tracked frame ran the table gradient: {launches}, {ours}")
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--end-frame", type=int, default=None)
@@ -1871,9 +1835,6 @@ def main(argv=None):
         results[k]["launches_by_path"] = {"slam": v, "encodings_dense": dense_counts[k],
                                           "scannet_keystep": scannet_counts[k]}
     t0 = time.perf_counter()
-    profile_slam(slam, idx=min(main_frames, slam.n_img) - 1)
-    print(f"phase profile wall {time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
     for path, counts in run_outputs(slam).items():
         for k, v in counts.items():
             results[k]["launches_by_path"][path] = v
@@ -1890,7 +1851,6 @@ def main(argv=None):
     parity, counts = run_parity(parity_frames)
     for k, v in counts.items():
         results[k]["launches_by_path"]["parity"] = v
-    profile_slam(parity, name="slam_parity", idx=parity_frames - 1)
     print(f"phase parity wall {time.perf_counter() - t0:.2f} s", flush=True)
     del parity
     if args.end_frame is None or args.end_frame > 21:

@@ -124,11 +124,6 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# the wrappers' launch counts are module globals that two threads (the
-# tracker's and an asynchronous keystep's) may add to at once
-count_lock = threading.Lock()
-
-
 def on_side_stream(device) -> bool:
     """Is the current stream another than the device's default stream (the
     asynchronous keystep's)?"""

@@ -14,8 +14,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = 0  # kernel launches by encode_forward (the plain twin does not count)
-SIDE_LAUNCHES = 0  # of those, the launches on another stream than the default
+from dnsjax_torch import spans
 
 
 def _residual_shapes(N: int, spec):
@@ -55,7 +54,6 @@ def encode_forward(pts: torch.Tensor, table: torch.Tensor, spec, want_res: bool)
     CPU tensors take the plain twin. CUDA tensors launch
     ``dnsjax_hash_encode_fwd`` (csrc/hashgrid.cu) and never fall back.
     """
-    global LAUNCHES, SIDE_LAUNCHES
     if pts.device.type == "cpu" and table.device.type == "cpu":
         return encode_forward_plain(pts, table, spec, want_res)
     from dnsjax_torch.ops import _cuda
@@ -99,7 +97,8 @@ def encode_forward(pts: torch.Tensor, table: torch.Tensor, spec, want_res: bool)
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "dnsjax_hash_encode_fwd")
-    with _cuda.count_lock:
-        LAUNCHES += 1
-        SIDE_LAUNCHES += _cuda.on_side_stream(dev)
+    # launches of the kernel (the plain twin does not count), and of those
+    # the launches on another stream than the default
+    spans.count("encode.launches")
+    spans.count("encode.side_launches", _cuda.on_side_stream(dev))
     return out, feats, idx, w, aux

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dnsjax_torch import spans
+
 # Spatial-hash primes from Teschner et al. / Instant-NGP.
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -265,7 +267,8 @@ class _HashEncode(torch.autograd.Function):
     def forward(table, pts, spec, want_res):
         from dnsjax_torch.ops.gather import encode_forward
 
-        return encode_forward(pts, table, spec, want_res)
+        with spans.span("encode"):
+            return encode_forward(pts, table, spec, want_res)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -282,14 +285,15 @@ class _HashEncode(torch.autograd.Function):
         if feats.numel() == 0 and pts.numel() > 0:
             raise RuntimeError("hash_encode: backward of a forward run without residuals")
         spec = ctx.spec
-        g = g.reshape(-1, spec.n_levels, spec.n_features).to(torch.float32)
-        d_table = d_pts = None
-        if ctx.needs_input_grad[0]:
-            from dnsjax_torch.ops.scatter import table_grad
+        with spans.span("encode_bwd"):
+            g = g.reshape(-1, spec.n_levels, spec.n_features).to(torch.float32)
+            d_table = d_pts = None
+            if ctx.needs_input_grad[0]:
+                from dnsjax_torch.ops.scatter import table_grad
 
-            d_table = table_grad(spec, idx, w, g)
-        if ctx.needs_input_grad[1]:
-            d_pts = _position_grad(spec, pts, feats, aux, g)
+                d_table = table_grad(spec, idx, w, g)
+            if ctx.needs_input_grad[1]:
+                d_pts = _position_grad(spec, pts, feats, aux, g)
         return d_table, d_pts, None, None
 
     @staticmethod

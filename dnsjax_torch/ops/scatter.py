@@ -41,11 +41,9 @@ import functools
 
 import torch
 
+from dnsjax_torch import spans
 from dnsjax_torch.ops.hashgrid import _level_draw, _table_grad_contribs
 
-LAUNCHES = 0  # kernel launches by table_grad and scatter_add (twins do not count)
-SIDE_LAUNCHES = 0  # of those, the launches on another stream than the default
-SORTED_LAUNCHES = 0  # kernel launches by sorted_segment_sum
 _U32 = 0xFFFFFFFF
 # dnsjax_table_grad's modes: corners (one sampled, all, values as given) and
 # value rounding per ``spec.scatter``
@@ -151,7 +149,6 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding, level=False) -> None:
     """One launch of ``dnsjax_table_grad`` adding into the zeroed ``out``."""
-    global LAUNCHES, SIDE_LAUNCHES
     from dnsjax_torch.ops import _cuda
 
     if F not in _FEATURES:
@@ -166,9 +163,10 @@ def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding, level=False) -> No
         _cuda.stream_ptr(out.device),
     )
     _cuda.check(err, "dnsjax_table_grad")
-    with _cuda.count_lock:
-        LAUNCHES += 1
-        SIDE_LAUNCHES += _cuda.on_side_stream(out.device)
+    # launches by table_grad and scatter_add (the twins do not count), and
+    # of those the launches on another stream than the default
+    spans.count("table_grad.launches")
+    spans.count("table_grad.side_launches", _cuda.on_side_stream(out.device))
 
 
 def table_grad(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -273,7 +271,6 @@ def sorted_segment_sum(sidx: torch.Tensor, svals: torch.Tensor, R: int) -> torch
     floats, so it raises for F > 32 unless F is even (F <= 64) or a
     multiple of 4 (F <= 128). M = 0 launches nothing.
     """
-    global SORTED_LAUNCHES
     if sidx.device.type == "cpu" and svals.device.type == "cpu":
         return sorted_scatter_add_plain(sidx, svals, R)
     from dnsjax_torch.ops import _cuda
@@ -306,7 +303,7 @@ def sorted_segment_sum(sidx: torch.Tensor, svals: torch.Tensor, R: int) -> torch
         _cuda.stream_ptr(sidx.device),
     )
     _cuda.check(err, "dnsjax_sorted_scatter_add")
-    SORTED_LAUNCHES += 1
+    spans.count("sorted_scatter.launches")
     return out
 
 

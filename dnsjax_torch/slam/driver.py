@@ -21,6 +21,12 @@ then continues from frame k. Each tracked frame and keystep appends an
 event to ``metrics.jsonl`` (a track event carries the estimated and GT
 poses); under ``verbose`` the FRONT and BACK lines also go to
 ``output_front.txt`` and ``output_back_fine.txt``, as in dnsjax.
+Spans (``dnsjax_torch/spans.py``, off unless traced) mark each loop pass
+(``frame``), its ``load`` and ``upload``, the tracked frame (``track``:
+``track.encode``, ``track.solve``, ``track.readback``), the keystep
+(``keystep``: ``map.call``, ``keystep.finish``), ``keyframe``,
+``checkpoint``, ``log`` and the ``bootstrap``, whose seconds also go to
+the counter ``bootstrap.seconds``.
 
 ``tpu.async_map`` (default on unless ``sync_method: strict``) defers a
 keystep's results (pose write-back, losses, logs, and the tracker's copy of
@@ -83,6 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dnsjax_torch import spans
 from dnsjax_torch.data import get_dataset
 from dnsjax_torch.geometry.se3 import camera_from_tensor, camera_from_tensor_np, invert_se3, tensor_from_camera, tensor_from_camera_np
 from dnsjax_torch.mesh.mesher import Mesher, class_palette
@@ -399,13 +406,14 @@ class DNSSLAM:
 
     def _frame_to_device(self, frame: Dict[str, np.ndarray]) -> Dict[str, Any]:
         dev = self.device
-        return {
-            "index": int(frame["index"]),
-            "color": torch.as_tensor(frame["color"], device=dev),
-            "depth": torch.as_tensor(frame["depth"], device=dev),
-            "label": torch.as_tensor(frame["label"], device=dev),
-            "host": frame,
-        }
+        with spans.span("upload"):
+            return {
+                "index": int(frame["index"]),
+                "color": torch.as_tensor(frame["color"], device=dev),
+                "depth": torch.as_tensor(frame["depth"], device=dev),
+                "label": torch.as_tensor(frame["label"], device=dev),
+                "host": frame,
+            }
 
     def _kf_feat(self, slot: int) -> torch.Tensor:
         if slot not in self._kf_feats:
@@ -585,39 +593,40 @@ class DNSSLAM:
         (default this rank's, ``gen`` when given without data_parallel);
         ``n_kf``: the keyframe slots it may read (default the store's
         count)."""
-        if ray_gen is None:
-            ray_gen = gen if gen is not None and self.mesh is None else self.ray_gen
-        gen = self.gen if gen is None else gen
-        n_kf = self.keyframes.count if n_kf is None else n_kf
-        if cur_c2w is None:
-            cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
-        self.is_ba = idx >= self.start_optimize_idx
-        targets = [] if is_first else self._select_targets(mode, cur, cur_c2w, gen, n_kf)
-        window, quads0, Ts0, slots, valid = self._build_window(targets, cur, cur_c2w, n_kf)
+        with spans.span("map.call", frame=idx):
+            if ray_gen is None:
+                ray_gen = gen if gen is not None and self.mesh is None else self.ray_gen
+            gen = self.gen if gen is None else gen
+            n_kf = self.keyframes.count if n_kf is None else n_kf
+            if cur_c2w is None:
+                cur_c2w = torch.as_tensor(self.estimate_c2w[idx], device=self.device)
+            self.is_ba = idx >= self.start_optimize_idx
+            targets = [] if is_first else self._select_targets(mode, cur, cur_c2w, gen, n_kf)
+            window, quads0, Ts0, slots, valid = self._build_window(targets, cur, cur_c2w, n_kf)
 
-        offs = window["offsets"].cpu().numpy()
-        present = np.nonzero((offs[:, 1:] - offs[:, :-1]).sum(0) > 0)[0].tolist()
-        new_decoders = self._set_decoder_counts(present)
-        if self.first_frame_optimized and new_decoders and idx > 50:
-            cur_classes = set(np.unique(cur["host"]["label"]).tolist())
-            warm = [c for c in new_decoders if c in cur_classes]
-            if warm:
-                self.decoder_init(cur, cur_c2w, warm, gen)
-        if new_decoders:
-            window["lt_gate_iter"] = n_iters // 2
+            offs = window["offsets"].cpu().numpy()
+            present = np.nonzero((offs[:, 1:] - offs[:, :-1]).sum(0) > 0)[0].tolist()
+            new_decoders = self._set_decoder_counts(present)
+            if self.first_frame_optimized and new_decoders and idx > 50:
+                cur_classes = set(np.unique(cur["host"]["label"]).tolist())
+                warm = [c for c in new_decoders if c in cur_classes]
+                if warm:
+                    self.decoder_init(cur, cur_c2w, warm, gen)
+            if new_decoders:
+                window["lt_gate_iter"] = n_iters // 2
 
-        mesh = self._keystep_mesh()
-        quads, Ts, aux = self._map_fn(len(slots), n_iters, mesh)(
-            self.params, quads0, Ts0, window, ray_gen
-        )
-        c2w_new = camera_from_tensor(torch.cat([quads, Ts], -1))
-        if self.is_ba:
-            n_real = len(targets) + 1
-            for i, (sid, v) in enumerate(zip(slots[:-1], valid[:-1])):
-                if not v or (i == 0 and n_real > 1):
-                    continue  # padding slot, or the frozen oldest frame
-                self.keyframes.update_pose(sid, c2w_new[i])
-        return aux, c2w_new[-1]
+            mesh = self._keystep_mesh()
+            quads, Ts, aux = self._map_fn(len(slots), n_iters, mesh)(
+                self.params, quads0, Ts0, window, ray_gen
+            )
+            c2w_new = camera_from_tensor(torch.cat([quads, Ts], -1))
+            if self.is_ba:
+                n_real = len(targets) + 1
+                for i, (sid, v) in enumerate(zip(slots[:-1], valid[:-1])):
+                    if not v or (i == 0 and n_real > 1):
+                        continue  # padding slot, or the frozen oldest frame
+                    self.keyframes.update_pose(sid, c2w_new[i])
+            return aux, c2w_new[-1]
 
     def decoder_init(self, cur, c2w: torch.Tensor, classes: List[int],
                      gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -647,24 +656,25 @@ class DNSSLAM:
         global windows) and record it as pending; without ``async_map`` it
         runs here and finishes at once. Composed, rank 0's poses reach the
         link first and the keystep ranks run it in their worker thread."""
-        t0 = time.perf_counter()
-        if self.composed:
-            self._share_poses(idx)
-            if self.maps:
+        with spans.span("keystep", frame=idx):
+            t0 = time.perf_counter()
+            if self.composed:
+                self._share_poses(idx)
+                if self.maps:
+                    self._dispatch_keystep(idx, cur, t0)
+                else:  # rank 0 alone: the keystep's first rank sends it at the finish
+                    self._pending_map = dict(idx=idx, is_ba=idx >= self.start_optimize_idx,
+                                             t_dispatch=time.perf_counter() - t0)
+                if not self.async_map:
+                    self._finish_map()
+                return
+            if self.async_map:
                 self._dispatch_keystep(idx, cur, t0)
-            else:  # rank 0 alone: the keystep's first rank sends it at the finish
-                self._pending_map = dict(idx=idx, is_ba=idx >= self.start_optimize_idx,
-                                         t_dispatch=time.perf_counter() - t0)
-            if not self.async_map:
-                self._finish_map()
-            return
-        if self.async_map:
-            self._dispatch_keystep(idx, cur, t0)
-            return
-        aux, cur_c2w = self._outer_calls(idx, cur)
-        self._pending_map = dict(idx=idx, aux=aux, cur_c2w=cur_c2w, is_ba=self.is_ba,
-                                 t_dispatch=time.perf_counter() - t0)
-        self._finish_map()
+                return
+            aux, cur_c2w = self._outer_calls(idx, cur)
+            self._pending_map = dict(idx=idx, aux=aux, cur_c2w=cur_c2w, is_ba=self.is_ba,
+                                     t_dispatch=time.perf_counter() - t0)
+            self._finish_map()
 
     def _outer_calls(self, idx: int, cur, cur_c2w=None, gen=None, n_kf=None, ray_gen=None):
         """The keystep's two mapping calls; (aux, refined current pose)."""
@@ -782,42 +792,44 @@ class DNSSLAM:
         p = self._pending_map
         if p is None:
             return
-        self._pending_map = None
-        t0 = time.perf_counter()
-        idx = p["idx"]
-        losses = cur_c2w = events = None  # composed rank 0 alone: from the share below
-        if "future" in p:
-            losses, cur_c2w, events = p["future"].result()
-            if self._map_stream is not None:
-                torch.cuda.current_stream(self.device).wait_stream(self._map_stream)
-        elif "aux" in p:
-            cur_c2w, events = p["cur_c2w"], []
-            losses = self._losses(p["aux"])
-            self._sync()
-        if self.composed:
-            losses, cur_c2w, events = self._share_map(losses, cur_c2w, events)
-        if p["is_ba"]:
-            self.estimate_c2w[idx] = cur_c2w.cpu().numpy()
-            if idx in self.keyframes.frame_ids:
-                self.keyframes.update_pose(self.keyframes.frame_ids.index(idx), cur_c2w)
-        if self.tracks:
-            self._track_params = self._snapshot()
-        t_block = time.perf_counter() - t0
-        t_dispatch = p["t_dispatch"]
-        self.map_times.append(t_dispatch + t_block)
-        for ev in events:
-            self._log_metric(**ev)
-        p_loss, d_loss, l_loss, lt_loss = (float(v) for v in losses)
-        psnr = -10.0 * np.log10(max(p_loss, 1e-12))
-        self.last_map_aux = dict(frame=idx, p_loss=p_loss, d_loss=d_loss,
-                                 l_loss=l_loss, lt_loss=lt_loss, psnr=psnr)
-        if self.verbose:
-            self._log_line("output_back_fine.txt",
-                           f"Frame {idx} BACK: rgb {p_loss:.4f} psnr {psnr:.2f} d {d_loss:.4f} "
-                           f"l {l_loss:.4f} lt {lt_loss:.4f} {t_dispatch:.1f}+{t_block:.1f}s")
-        self._log_metric(event="map", frame=idx, p_loss=p_loss, d_loss=d_loss,
-                         l_loss=l_loss, lt_loss=lt_loss, seconds=self.map_times[-1],
-                         dispatch_seconds=t_dispatch, n_keyframes=self.keyframes.count)
+        with spans.span("keystep.finish", frame=p["idx"]):
+            self._pending_map = None
+            t0 = time.perf_counter()
+            idx = p["idx"]
+            losses = cur_c2w = events = None  # composed rank 0 alone: from the share below
+            if "future" in p:
+                losses, cur_c2w, events = p["future"].result()
+                if self._map_stream is not None:
+                    torch.cuda.current_stream(self.device).wait_stream(self._map_stream)
+            elif "aux" in p:
+                cur_c2w, events = p["cur_c2w"], []
+                losses = self._losses(p["aux"])
+                self._sync()
+            if self.composed:
+                losses, cur_c2w, events = self._share_map(losses, cur_c2w, events)
+            if p["is_ba"]:
+                self.estimate_c2w[idx] = cur_c2w.cpu().numpy()
+                if idx in self.keyframes.frame_ids:
+                    self.keyframes.update_pose(self.keyframes.frame_ids.index(idx), cur_c2w)
+            if self.tracks:
+                self._track_params = self._snapshot()
+            t_block = time.perf_counter() - t0
+            t_dispatch = p["t_dispatch"]
+            self.map_times.append(t_dispatch + t_block)
+            for ev in events:
+                self._log_metric(**ev)
+            p_loss, d_loss, l_loss, lt_loss = (float(v) for v in losses)
+            psnr = -10.0 * np.log10(max(p_loss, 1e-12))
+            self.last_map_aux = dict(frame=idx, p_loss=p_loss, d_loss=d_loss,
+                                     l_loss=l_loss, lt_loss=lt_loss, psnr=psnr)
+            if self.verbose:
+                self._log_line("output_back_fine.txt",
+                               f"Frame {idx} BACK: rgb {p_loss:.4f} psnr {psnr:.2f} "
+                               f"d {d_loss:.4f} l {l_loss:.4f} lt {lt_loss:.4f} "
+                               f"{t_dispatch:.1f}+{t_block:.1f}s")
+            self._log_metric(event="map", frame=idx, p_loss=p_loss, d_loss=d_loss,
+                             l_loss=l_loss, lt_loss=lt_loss, seconds=self.map_times[-1],
+                             dispatch_seconds=t_dispatch, n_keyframes=self.keyframes.count)
 
     def _release_worker(self) -> None:
         """Shut the keystep's worker thread down (after its last keystep)."""
@@ -948,55 +960,60 @@ class DNSSLAM:
         """([quad, T, loss, p, d] float64, iterations run)."""
         t7 = tensor_from_camera_np(c2w0).astype(np.float32)
         t7 = torch.as_tensor(t7, device=self.device)
-        packed, n_run = self.tracker.track(
-            self._track_params, feats, self._refer_w2c, cur["color"], cur["depth"],
-            cur["label"], t7[:4], t7[4:], self.bound, self.ray_gen,
-        )
-        return packed.cpu().numpy().astype(np.float64), n_run
+        with spans.span("track.solve"):
+            packed, n_run = self.tracker.track(
+                self._track_params, feats, self._refer_w2c, cur["color"], cur["depth"],
+                cur["label"], t7[:4], t7[4:], self.bound, self.ray_gen,
+            )
+        with spans.span("track.readback"):
+            packed = packed.cpu()
+        return packed.numpy().astype(np.float64), n_run
 
     def track_frame(self, idx: int, cur) -> np.ndarray:
-        t0 = time.perf_counter()
-        if self._refer_color is None or (
-            self.fix_refer_bug and (idx - 1) % self.optimize_every == 0
-        ):
-            self._refer_color = self._pre_color
-            self._refer_w2c = torch.as_tensor(
-                np.linalg.inv(self.estimate_c2w[idx - 1]).astype(np.float32),
-                device=self.device,
-            )
-        feats = self._encode(torch.stack([self._refer_color, cur["color"]]))
-        est0 = pose_init_const_velocity(self.estimate_c2w, idx, self.const_speed)
-        pk, n_run = self._track_once(feats, cur, est0)
-        best_loss = float(pk[7])
-        hist = self._track_loss_hist
-        retried = False
-        if (self.track_retry_factor > 0 and len(hist) >= 5
-                and best_loss > self.track_retry_factor * float(np.median(hist[-20:]))):
-            # loss outlier: re-track from the raw previous pose with fresh
-            # rays and keep the lower-loss candidate
-            pk_r, n_retry = self._track_once(feats, cur, self.estimate_c2w[idx - 1])
-            n_run += n_retry
-            retried = True
-            if float(pk_r[7]) < best_loss:
-                pk, best_loss = pk_r, float(pk_r[7])
-        hist.append(best_loss)
-        c2w = camera_from_tensor_np(pk[:7]).astype(np.float32)
-        self.estimate_c2w[idx] = c2w
-        dt = time.perf_counter() - t0
-        self.track_times.append(dt)
-        self.track_iters.append(n_run)
-        p_loss, d_loss = float(pk[8]), float(pk[9])
-        if self.verbose:
-            err = float(np.abs(tensor_from_camera_np(cur["host"]["c2w"]) - pk[:7]).mean())
-            psnr = -10.0 * np.log10(max(p_loss, 1e-12))
-            self._log_line("output_front.txt",
-                           f"Frame {idx} FRONT: rgb {p_loss:.4f} psnr {psnr:.2f} "
-                           f"d {d_loss:.4f} ATE~{err:.6f} {dt:.2f}s")
-        self._log_metric(event="track", frame=idx, p_loss=p_loss, d_loss=d_loss,
-                         best_loss=best_loss, retried=retried, n_iters_run=n_run,
-                         seconds=dt, c2w=np.round(c2w[:3, :4], 6).reshape(-1).tolist(),
-                         gt_c2w=np.round(self.gt_c2w[idx][:3, :4], 6).reshape(-1).tolist())
-        return c2w
+        with spans.span("track", frame=idx):
+            t0 = time.perf_counter()
+            if self._refer_color is None or (
+                self.fix_refer_bug and (idx - 1) % self.optimize_every == 0
+            ):
+                self._refer_color = self._pre_color
+                self._refer_w2c = torch.as_tensor(
+                    np.linalg.inv(self.estimate_c2w[idx - 1]).astype(np.float32),
+                    device=self.device,
+                )
+            with spans.span("track.encode"):
+                feats = self._encode(torch.stack([self._refer_color, cur["color"]]))
+            est0 = pose_init_const_velocity(self.estimate_c2w, idx, self.const_speed)
+            pk, n_run = self._track_once(feats, cur, est0)
+            best_loss = float(pk[7])
+            hist = self._track_loss_hist
+            retried = False
+            if (self.track_retry_factor > 0 and len(hist) >= 5
+                    and best_loss > self.track_retry_factor * float(np.median(hist[-20:]))):
+                # loss outlier: re-track from the raw previous pose with fresh
+                # rays and keep the lower-loss candidate
+                pk_r, n_retry = self._track_once(feats, cur, self.estimate_c2w[idx - 1])
+                n_run += n_retry
+                retried = True
+                if float(pk_r[7]) < best_loss:
+                    pk, best_loss = pk_r, float(pk_r[7])
+            hist.append(best_loss)
+            c2w = camera_from_tensor_np(pk[:7]).astype(np.float32)
+            self.estimate_c2w[idx] = c2w
+            dt = time.perf_counter() - t0
+            self.track_times.append(dt)
+            self.track_iters.append(n_run)
+            p_loss, d_loss = float(pk[8]), float(pk[9])
+            if self.verbose:
+                err = float(np.abs(tensor_from_camera_np(cur["host"]["c2w"]) - pk[:7]).mean())
+                psnr = -10.0 * np.log10(max(p_loss, 1e-12))
+                self._log_line("output_front.txt",
+                               f"Frame {idx} FRONT: rgb {p_loss:.4f} psnr {psnr:.2f} "
+                               f"d {d_loss:.4f} ATE~{err:.6f} {dt:.2f}s")
+            self._log_metric(event="track", frame=idx, p_loss=p_loss, d_loss=d_loss,
+                             best_loss=best_loss, retried=retried, n_iters_run=n_run,
+                             seconds=dt, c2w=np.round(c2w[:3, :4], 6).reshape(-1).tolist(),
+                             gt_c2w=np.round(self.gt_c2w[idx][:3, :4], 6).reshape(-1).tolist())
+            return c2w
 
     def _log_line(self, name: str, line: str) -> None:
         """Print a verbose log line and append it to ``<out>/<name>`` (the
@@ -1017,20 +1034,21 @@ class DNSSLAM:
         if not self.writes:
             return
         kw["t"] = time.time()
-        with open(os.path.join(self.out_dir, "metrics.jsonl"), "a") as f:
+        with spans.span("log"), open(os.path.join(self.out_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(kw) + "\n")
 
     def _add_keyframe(self, idx: int, cur) -> None:
-        kf = self.keyframes
-        if kf.count >= kf.capacity:
-            if self.kf_eviction == "skip":
-                print(f"WARNING: keyframe store full ({kf.capacity}); frame {idx} "
-                      "not keyframed — raise mapping.max_keyframes")
-                return
-            self._finish_map()  # a running keystep reads the slots eviction moves
-            self._evict_keyframe()
-        if kf.count < kf.capacity:
-            kf.add(cur["host"], self.estimate_c2w[idx])
+        with spans.span("keyframe", frame=idx):
+            kf = self.keyframes
+            if kf.count >= kf.capacity:
+                if self.kf_eviction == "skip":
+                    print(f"WARNING: keyframe store full ({kf.capacity}); frame {idx} "
+                          "not keyframed — raise mapping.max_keyframes")
+                    return
+                self._finish_map()  # a running keystep reads the slots eviction moves
+                self._evict_keyframe()
+            if kf.count < kf.capacity:
+                kf.add(cur["host"], self.estimate_c2w[idx])
 
     # ------------------------------------------------------------------
     def resume(self, path: str) -> int:
@@ -1057,34 +1075,39 @@ class DNSSLAM:
         return int(meta["idx"]) + 1
 
     def _bootstrap(self, n: int) -> None:
-        """Frames 0 and 1 take their GT poses; frame 0 maps first."""
-        f0 = self._frame_to_device(self.dataset[0])
-        self.gt_c2w[0] = f0["host"]["c2w"]
-        self.estimate_c2w[0] = self.gt_c2w[0]
-        self.keyframes.add(f0["host"], self.gt_c2w[0])
-        if n > 1:
-            f1 = self.dataset[1]
-            self.gt_c2w[1] = f1["c2w"]
-            self.estimate_c2w[1] = f1["c2w"]
+        """Frames 0 and 1 take their GT poses; frame 0 maps first. Its
+        seconds also go to the counter ``bootstrap.seconds``: it runs
+        before any profiler would."""
+        t_start = time.perf_counter()
+        with spans.span("bootstrap", frame=0):
+            f0 = self._frame_to_device(self.dataset[0])
+            self.gt_c2w[0] = f0["host"]["c2w"]
+            self.estimate_c2w[0] = self.gt_c2w[0]
+            self.keyframes.add(f0["host"], self.gt_c2w[0])
+            if n > 1:
+                f1 = self.dataset[1]
+                self.gt_c2w[1] = f1["c2w"]
+                self.estimate_c2w[1] = f1["c2w"]
 
-        t0 = time.perf_counter()
-        if self.maps:
-            # composed, the keystep ranks bootstrap on generators of their own,
-            # so the tracker's draws do not depend on where the keystep runs
-            gen, ray_gen = self._keystep_gens(0) if self.composed else (None, None)
-            aux0, _ = self.map_once(0, f0, self.n_iters_first, "overlap", is_first=True,
-                                    gen=gen, ray_gen=ray_gen)
-            float(aux0["p_loss"])
-        if self.composed:
-            self._share_map()
-        self._sync()
-        self._track_params = self._snapshot()
-        self.map_times.append(time.perf_counter() - t0)
-        self.first_frame_optimized = True
-        self._pre_color = f0["color"]
-        if self.verbose and self.writes:
-            print(f"BACK: init mapping done in {self.map_times[-1]:.1f}s", flush=True)
-        self._log_metric(event="init_map", seconds=self.map_times[-1])
+            t0 = time.perf_counter()
+            if self.maps:
+                # composed, the keystep ranks bootstrap on generators of their own,
+                # so the tracker's draws do not depend on where the keystep runs
+                gen, ray_gen = self._keystep_gens(0) if self.composed else (None, None)
+                aux0, _ = self.map_once(0, f0, self.n_iters_first, "overlap", is_first=True,
+                                        gen=gen, ray_gen=ray_gen)
+                float(aux0["p_loss"])
+            if self.composed:
+                self._share_map()
+            self._sync()
+            self._track_params = self._snapshot()
+            self.map_times.append(time.perf_counter() - t0)
+            self.first_frame_optimized = True
+            self._pre_color = f0["color"]
+            if self.verbose and self.writes:
+                print(f"BACK: init mapping done in {self.map_times[-1]:.1f}s", flush=True)
+            self._log_metric(event="init_map", seconds=self.map_times[-1])
+        spans.count("bootstrap.seconds", time.perf_counter() - t_start)
 
     def run(self, end_frame: Optional[int] = None, start_frame: int = 0):
         """The ``sync_method`` schedule from frame ``start_frame`` (0
@@ -1110,39 +1133,42 @@ class DNSSLAM:
                 maps_now = self._should_map(idx, last_mapped, n)
                 if not (self.tracks or maps_now):
                     continue  # a keystep rank reads only the frames it maps
-                cur = self._frame_to_device(self.dataset[idx])
-                self.gt_c2w[idx] = cur["host"]["c2w"]
-                if idx <= 1 or self.use_gt_camera:
-                    self.estimate_c2w[idx] = cur["host"]["c2w"]
-                    if self._refer_color is None:
-                        self._refer_w2c = torch.as_tensor(
-                            np.linalg.inv(self.estimate_c2w[idx]).astype(np.float32),
-                            device=self.device,
-                        )
-                        self._refer_color = cur["color"]
-                elif self.tracks:
-                    self.track_frame(idx, cur)
+                with spans.span("frame", frame=idx):
+                    with spans.span("load"):
+                        data = self.dataset[idx]
+                    cur = self._frame_to_device(data)
+                    self.gt_c2w[idx] = cur["host"]["c2w"]
+                    if idx <= 1 or self.use_gt_camera:
+                        self.estimate_c2w[idx] = cur["host"]["c2w"]
+                        if self._refer_color is None:
+                            self._refer_w2c = torch.as_tensor(
+                                np.linalg.inv(self.estimate_c2w[idx]).astype(np.float32),
+                                device=self.device,
+                            )
+                            self._refer_color = cur["color"]
+                    elif self.tracks:
+                        self.track_frame(idx, cur)
 
-                if maps_now:
-                    self._finish_map()
-                    self._keystep(idx, cur)
-                    last_mapped = idx
-                    if idx == n - 1:
+                    if maps_now:
                         self._finish_map()
-                    if self.vis_every > 0 and (idx % self.vis_every == 0 or idx <= 1):
-                        self._finish_map()
-                        self.frame_vis(idx, cur)
-                    if (idx % self.keyframe_every == 0 or idx == n - 2) \
-                            and idx not in self.keyframes.frame_ids:
-                        self._add_keyframe(idx, cur)
-                    if self.mesher is not None and idx % self.mesh_every == 0:
-                        self._finish_map()
-                        self.save_mesh(idx)
-                    if self.checkpoint_every > 0 and idx % self.checkpoint_every == 0 \
-                            and idx > 1:
-                        self._finish_map()
-                        self.save_checkpoint(f"model_{idx}.npz", idx)
-                self._pre_color = cur["color"]
+                        self._keystep(idx, cur)
+                        last_mapped = idx
+                        if idx == n - 1:
+                            self._finish_map()
+                        if self.vis_every > 0 and (idx % self.vis_every == 0 or idx <= 1):
+                            self._finish_map()
+                            self.frame_vis(idx, cur)
+                        if (idx % self.keyframe_every == 0 or idx == n - 2) \
+                                and idx not in self.keyframes.frame_ids:
+                            self._add_keyframe(idx, cur)
+                        if self.mesher is not None and idx % self.mesh_every == 0:
+                            self._finish_map()
+                            self.save_mesh(idx)
+                        if self.checkpoint_every > 0 and idx % self.checkpoint_every == 0 \
+                                and idx > 1:
+                            self._finish_map()
+                            self.save_checkpoint(f"model_{idx}.npz", idx)
+                    self._pre_color = cur["color"]
             self._finish_map()
         finally:
             self._release_worker()
@@ -1159,9 +1185,10 @@ class DNSSLAM:
         """Write the checkpoint ``<out>/<name>`` (the first rank only)."""
         if not self.writes:
             return
-        save_checkpoint(
-            os.path.join(self.out_dir, name), params=self.params,
-            enc_params=self.enc_params, estimate_c2w=self.estimate_c2w,
-            gt_c2w=self.gt_c2w, keyframes=self.keyframes, idx=idx,
-            scene=self.scene, exist_decoders=self.exist_decoders,
-        )
+        with spans.span("checkpoint", frame=idx):
+            save_checkpoint(
+                os.path.join(self.out_dir, name), params=self.params,
+                enc_params=self.enc_params, estimate_c2w=self.estimate_c2w,
+                gt_c2w=self.gt_c2w, keyframes=self.keyframes, idx=idx,
+                scene=self.scene, exist_decoders=self.exist_decoders,
+            )

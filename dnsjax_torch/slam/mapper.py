@@ -26,6 +26,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from dnsjax_torch import spans
 from dnsjax_torch.geometry.rays import project_points, ray_box_far, rays_from_uv, world_to_camera
 from dnsjax_torch.geometry.se3 import compose_c2w, invert_se3, quat_to_rotation
 from dnsjax_torch.losses.losses import (
@@ -307,12 +308,14 @@ def make_decoder_init_fn(spec: DecoderSpec, cfg: MapConfig, n_iters: int = 100,
             p.requires_grad_(True)
         try:
             for it in range(n_iters):
-                d = draws[it] if draws is not None else loss_fn.draw(gen, frame["color"].device)
-                opt.zero_grad(set_to_none=True)
-                loss = loss_fn(params, frame, class_mask, d)
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
+                with spans.span("map.iter"):
+                    d = (draws[it] if draws is not None
+                         else loss_fn.draw(gen, frame["color"].device))
+                    opt.zero_grad(set_to_none=True)
+                    loss = loss_fn(params, frame, class_mask, d)
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.detach())
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -348,16 +351,17 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
     aux = None
     try:
         for it in range(n_iters):
-            d = draws[it] if draws is not None else loss_fn.draw(gen, window, it)
-            opt.zero_grad(set_to_none=True)
-            loss, aux = loss_fn(params, quads, Ts, window, d, it)
-            loss.backward()
-            if reduce is not None:
-                loss, aux = _reduce_step(reduce, loss, aux, leaves + [quads, Ts])
-            quads.grad.mul_(pose_train)
-            Ts.grad.mul_(pose_train)
-            opt.step()
-            losses.append(loss.detach())
+            with spans.span("map.iter"):
+                d = draws[it] if draws is not None else loss_fn.draw(gen, window, it)
+                opt.zero_grad(set_to_none=True)
+                loss, aux = loss_fn(params, quads, Ts, window, d, it)
+                loss.backward()
+                if reduce is not None:
+                    loss, aux = _reduce_step(reduce, loss, aux, leaves + [quads, Ts])
+                quads.grad.mul_(pose_train)
+                Ts.grad.mul_(pose_train)
+                opt.step()
+                losses.append(loss.detach())
     finally:
         for p in leaves:
             p.requires_grad_(False)

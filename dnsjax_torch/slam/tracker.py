@@ -42,6 +42,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from dnsjax_torch import spans
 from dnsjax_torch.geometry.rays import ray_box_far, rays_from_uv
 from dnsjax_torch.geometry.se3 import compose_c2w, invert_se3, quat_to_rotation
 from dnsjax_torch.losses.losses import depth_var_loss, photometric_loss, semantic_ce_loss
@@ -253,11 +254,12 @@ class Tracker:
         vel = [torch.zeros_like(x) for x in pose]
         since, it = 0, 0
         while it < cfg.n_iters:
-            (loss, p, d), grads = self.adam_grad(pose[0], pose[1], frame, draw(it))
-            best, better = self._keep(best, loss, pose[0], pose[1], p, d)
-            pose, mom, vel = self.adam_step(pose, mom, vel, grads, it)
-            it += 1
-            stop, since = self._stalled(better, since, cfg.patience)
+            with spans.span("track.iter"):
+                (loss, p, d), grads = self.adam_grad(pose[0], pose[1], frame, draw(it))
+                best, better = self._keep(best, loss, pose[0], pose[1], p, d)
+                pose, mom, vel = self.adam_step(pose, mom, vel, grads, it)
+                it += 1
+                stop, since = self._stalled(better, since, cfg.patience)
             if stop:
                 break
         return best, it
@@ -272,18 +274,20 @@ class Tracker:
         best = (inf, quad0, T0, inf, inf)  # (loss, quad, T, p, d)
         since, it = 0, 0
         while it < cfg.lm_iters:
-            draws = draw(it)
-            r, J, (loss, p, d) = self.linearize(quad, T, frame, draws)
-            JTJ, JTr, loss, p, d = self._pmean(J @ J.T, J @ r, loss, p, d)
-            best, better = self._keep(best, loss, quad, T, p, d)
-            q_new, T_new = self.lm_step_normal(quad, T, lam, JTJ, JTr)
-            new_loss = self.eval_loss(q_new, T_new, frame, draws)[0]
-            accept = new_loss < loss
-            quad = torch.where(accept, q_new, quad)
-            T = torch.where(accept, T_new, T)
-            lam = torch.clamp(torch.where(accept, lam * cfg.lm_down, lam * cfg.lm_up), 1e-7, 1e7)
-            it += 1
-            stop, since = self._stalled(better, since, cfg.lm_patience)
+            with spans.span("track.iter"):
+                draws = draw(it)
+                r, J, (loss, p, d) = self.linearize(quad, T, frame, draws)
+                JTJ, JTr, loss, p, d = self._pmean(J @ J.T, J @ r, loss, p, d)
+                best, better = self._keep(best, loss, quad, T, p, d)
+                q_new, T_new = self.lm_step_normal(quad, T, lam, JTJ, JTr)
+                new_loss = self.eval_loss(q_new, T_new, frame, draws)[0]
+                accept = new_loss < loss
+                quad = torch.where(accept, q_new, quad)
+                T = torch.where(accept, T_new, T)
+                lam = torch.clamp(torch.where(accept, lam * cfg.lm_down, lam * cfg.lm_up),
+                                  1e-7, 1e7)
+                it += 1
+                stop, since = self._stalled(better, since, cfg.lm_patience)
             if stop:
                 break
         # the final accepted pose was never evaluated inside the loop

@@ -1,0 +1,137 @@
+"""The port's own spans and counters: where the loop's host time goes, and
+how often its kernels launch.
+
+``span(name, frame=None)`` is a context manager placed where the work
+happens (the driver's frame, load, upload, track, keystep, keyframe,
+checkpoint and log; the tracker's encode, solve, iterations and readback;
+the mapping calls and their iterations; the grid encode and its backward).
+``count(name, n=1)`` adds to a counter; the kernels' launch counts and
+``bootstrap.seconds`` live here.
+
+Off, the default, a span is one shared null context: it reads no clock
+and keeps nothing. Tracing is on after ``enable()`` (until ``disable()``),
+and in a thread while ``torch.profiler`` records it; whether a span is on
+is decided when it is entered, so a span open when the profiler stops
+still closes and is kept. An on span keeps its name, start and end
+(``time.perf_counter_ns``), its parent's id, its thread and its frame (a
+span without a frame takes its parent's, so every span of a frame carries
+that frame's index), and enters ``record_function("dns.<name>")`` while the
+profiler records, so a profiler trace shows the program's spans on the
+device's clock. The store keeps at most ``MAX_SPANS`` spans and counts
+the rest in ``spans.dropped``. Counters are always on.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+from torch.autograd.profiler import record_function
+
+MAX_SPANS = 200_000
+
+_profiling = torch._C._autograd._profiler_enabled
+_on = False
+_spans: List["Span"] = []
+_counters: Dict[str, float] = {}
+_lock = threading.Lock()
+_ids = itertools.count()
+_local = threading.local()
+
+
+class Span(NamedTuple):
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]  # the enclosing span's id in the same thread
+    thread: int
+    frame: Optional[int]
+
+
+_NULL = contextlib.nullcontext()
+
+
+class _Open:
+    """An entered span; kept in the store when it exits."""
+
+    __slots__ = ("name", "frame", "id", "parent", "start", "range")
+
+    def __init__(self, name: str, frame: Optional[int]):
+        self.name, self.frame = name, frame
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        top = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = top.id if top is not None else None
+        if self.frame is None and top is not None:
+            self.frame = top.frame
+        self.range = record_function(f"dns.{self.name}") if _profiling() else None
+        stack.append(self)
+        if self.range is not None:
+            self.range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _local.stack.pop()
+        if len(_spans) < MAX_SPANS:
+            _spans.append(Span(self.id, self.name, self.start, end, self.parent,
+                               threading.get_ident(), self.frame))
+        else:
+            count("spans.dropped")
+        return False
+
+
+def span(name: str, frame: Optional[int] = None):
+    """A span named ``name`` over the ``with`` block; ``frame``: the frame
+    index it belongs to (default: its parent's)."""
+    if not (_on or _profiling()):
+        return _NULL
+    return _Open(name, frame)
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the counter ``name`` (from any thread)."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def spans() -> List[Span]:
+    """The spans kept so far, in the order they closed."""
+    return list(_spans)
+
+
+def counters() -> Dict[str, float]:
+    """A copy of the counters."""
+    with _lock:
+        return dict(_counters)
+
+
+def clear() -> None:
+    """Forget every span and counter."""
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+
+
+def enable() -> None:
+    """Turn tracing on in every thread, profiler or not."""
+    global _on
+    _on = True
+
+
+def disable() -> None:
+    """Turn it off again (a profiler session still turns it on)."""
+    global _on
+    _on = False

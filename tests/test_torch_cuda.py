@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from dnsjax_torch import spans
 from dnsjax_torch.ops import encodings, gather, hashgrid, scatter
 
 pytestmark = pytest.mark.cuda
@@ -45,9 +46,9 @@ def test_encode_forward_kernel_matches_plain(dev, interp, F):
     g = torch.Generator(device=dev).manual_seed(0)
     table = torch.rand((3, 4096, F), generator=g, device=dev) * 2 - 1
     pts = torch.rand((5000, 3), generator=g, device=dev) * 1.2 - 0.1
-    before = gather.LAUNCHES
+    before = spans.counters().get("encode.launches", 0)
     got = gather.encode_forward(pts, table, spec, True)
-    assert gather.LAUNCHES == before + 1
+    assert spans.counters().get("encode.launches", 0) == before + 1
     ref = gather.encode_forward_plain(pts, table, spec, True)
     bare = gather.encode_forward(pts, table, spec, False)[0]
     torch.cuda.synchronize()
@@ -78,10 +79,10 @@ def test_dense_grid_encode_runs_the_kernel(dev, grad):
     spec = encodings.HashGridSpec(4, 2, 13, 4, 16)
     table = params["table"] * 1e4
     pts = torch.rand((3000, 3), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    before = gather.LAUNCHES
+    before = spans.counters().get("encode.launches", 0)
     with torch.set_grad_enabled(grad):
         got = enc({"table": table}, pts)
-    assert gather.LAUNCHES == before + 1
+    assert spans.counters().get("encode.launches", 0) == before + 1
     ref = gather.encode_forward_plain(pts, table, spec, False)[0]
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
 
@@ -104,16 +105,16 @@ def test_table_gradient_kernel_matches_plain(dev, scatter_mode, grad_corners, in
     cot = torch.randn((N, 3 * F), generator=g, device=dev)
     _, _, idx, w, _ = gather.encode_forward(pts, table.detach(), spec, True)
     gl = cot.reshape(N, 3, F)
-    before = scatter.LAUNCHES
+    before = spans.counters().get("table_grad.launches", 0)
     got = scatter.table_grad(spec, idx, w, gl)
-    assert scatter.LAUNCHES == before + 1
+    assert spans.counters().get("table_grad.launches", 0) == before + 1
     ref = scatter.table_grad_plain(spec, idx, w, gl)
     bound = _table_grad_bound(spec, idx, w, gl)
     assert got.shape == ref.shape and got.dtype == torch.float32
     assert bool(((got - ref).abs() <= bound).all())
-    before = scatter.LAUNCHES
+    before = spans.counters().get("table_grad.launches", 0)
     (hashgrid.hash_encode(table, pts, spec) * cot).sum().backward()
-    assert scatter.LAUNCHES == before + 1
+    assert spans.counters().get("table_grad.launches", 0) == before + 1
     assert bool(((table.grad - ref).abs() <= bound).all())
 
 
@@ -133,15 +134,15 @@ def test_level_draw_kernel_matches_plain(dev, scatter_mode, grad_corners, interp
     cot = torch.randn((N, 3 * F), generator=g, device=dev)
     _, _, idx, w, _ = gather.encode_forward(pts, table.detach(), spec, True)
     gl = cot.reshape(N, 3, F)
-    before = scatter.LAUNCHES
+    before = spans.counters().get("table_grad.launches", 0)
     got = scatter.table_grad(spec, idx, w, gl)
-    assert scatter.LAUNCHES == before + 1
+    assert spans.counters().get("table_grad.launches", 0) == before + 1
     ref = scatter.table_grad_plain(spec, idx, w, gl)
     bound = _table_grad_bound(spec, idx, w, gl)
     assert bool(((got - ref).abs() <= bound).all())
-    before = scatter.LAUNCHES
+    before = spans.counters().get("table_grad.launches", 0)
     (hashgrid.hash_encode(table, pts, spec) * cot).sum().backward()
-    assert scatter.LAUNCHES == before + 1
+    assert spans.counters().get("table_grad.launches", 0) == before + 1
     assert bool(((table.grad - ref).abs() <= bound).all())
 
 
@@ -152,9 +153,9 @@ def test_scatter_add_kernel_matches_plain(dev, F):
     g = torch.Generator(device=dev).manual_seed(4)
     idx = torch.randint(-3, 4096 + 3, (3, 7001), generator=g, device=dev, dtype=torch.int32)
     vals = torch.randn((3, 7001, F), generator=g, device=dev)
-    before = scatter.LAUNCHES
+    before = spans.counters().get("table_grad.launches", 0)
     got = scatter.scatter_add(idx, vals, 4096)
-    assert scatter.LAUNCHES == before + 1
+    assert spans.counters().get("table_grad.launches", 0) == before + 1
     ref = scatter.scatter_add_plain(idx, vals, 4096)
     bound = 1e-7 + 1e-5 * scatter.scatter_add_plain(idx, vals.abs(), 4096)
     assert bool(((got - ref).abs() <= bound).all())
@@ -167,10 +168,10 @@ def test_sorted_scatter_kernel_matches_plain_and_is_deterministic(dev, hot):
     hi = 10 if hot else R
     idx = torch.randint(0, hi, (M,), generator=g, device=dev, dtype=torch.int32)
     vals = torch.randn((M, F), generator=g, device=dev)
-    before = scatter.SORTED_LAUNCHES
+    before = spans.counters().get("sorted_scatter.launches", 0)
     got = scatter.sorted_scatter_add(idx, vals, R)
     again = scatter.sorted_scatter_add(idx, vals, R)
-    assert scatter.SORTED_LAUNCHES == before + 2
+    assert spans.counters().get("sorted_scatter.launches", 0) == before + 2
     ref = scatter.sorted_scatter_add_plain(idx, vals, R)
     bound = 1e-7 + 1e-5 * scatter.sorted_scatter_add_plain(idx, vals.abs(), R)
     assert bool(((got - ref).abs() <= bound).all())
@@ -203,10 +204,11 @@ def _sorted_case(case, F, g, dev):
 def test_sorted_segment_sum_tiles(dev, case, F):
     g = torch.Generator(device=dev).manual_seed(3)
     idx, vals, R = _sorted_case(case, F, g, dev)
-    before = scatter.SORTED_LAUNCHES
+    before = spans.counters().get("sorted_scatter.launches", 0)
     got = scatter.sorted_segment_sum(idx, vals, R)
     again = scatter.sorted_segment_sum(idx, vals, R)
-    assert scatter.SORTED_LAUNCHES == before + (2 if idx.numel() else 0)
+    launched = spans.counters().get("sorted_scatter.launches", 0) - before
+    assert launched == (2 if idx.numel() else 0)
     ref = scatter.sorted_scatter_add_plain(idx, vals, R)
     bound = 1e-7 + 1e-5 * scatter.sorted_scatter_add_plain(idx, vals.abs(), R)
     torch.cuda.synchronize()

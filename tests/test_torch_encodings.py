@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from dnsjax.ops import encodings as je
+from dnsjax_torch import spans
 from dnsjax_torch.ops import encodings as te
-from dnsjax_torch.ops import gather
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -63,11 +63,11 @@ def test_dense_grid_matches_with_the_table_carried_across():
     assert dim_j == dim_t == 8 and tuple(p_t["table"].shape) == tuple(p_j["table"].shape)
     table = np.asarray(p_j["table"]) * 1e4  # O(1) features
     pts = _pts(n=500, seed=2, lo=-0.05, hi=1.05)  # a margin outside the cube clamps
-    launches = gather.LAUNCHES
+    launches = spans.counters().get("encode.launches", 0)
     got = fn_t({"table": torch.tensor(table)}, torch.tensor(pts)).numpy()
     want = np.asarray(fn_j({"table": jnp.asarray(table)}, jnp.asarray(pts)))
     np.testing.assert_allclose(got, want, **TOL)
-    assert gather.LAUNCHES == launches
+    assert spans.counters().get("encode.launches", 0) == launches
     # and with a gradient: the table gradient of a sum is the weight mass
     tt = torch.tensor(table, requires_grad=True)
     te.dense_grid_encode(tt, torch.tensor(pts), te.HashGridSpec(4, 2, 10, 4, 8)).sum().backward()

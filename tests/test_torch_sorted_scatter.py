@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from dnsjax.ops import scatter as js
+from dnsjax_torch import spans
 from dnsjax_torch.ops import scatter as ts
 
 torch.set_num_threads(1)
@@ -71,9 +72,9 @@ def test_sorted_segment_sum_on_sorted_runs():
     [0, R) dropped, the CPU twin counted as no launch."""
     sidx = torch.tensor([-1, 0, 0, 2, 2, 2, 5, 9], dtype=torch.int32)
     svals = torch.arange(16, dtype=torch.float32).reshape(8, 2)
-    before = ts.SORTED_LAUNCHES
+    before = spans.counters().get("sorted_scatter.launches", 0)
     out = ts.sorted_segment_sum(sidx, svals, 6)
-    assert ts.SORTED_LAUNCHES == before
+    assert spans.counters().get("sorted_scatter.launches", 0) == before
     want = torch.zeros((6, 2))
     want[0] = svals[1] + svals[2]
     want[2] = svals[3] + svals[4] + svals[5]

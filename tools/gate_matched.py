@@ -636,10 +636,12 @@ def _one(pkg: str, device: str, name: str, seed: int, frames: int, eval_every: i
     _keep_poses(tdrv.DNSSLAM, kept)
     r = ab.run_variant(name, ab.VARIANTS[name], frames, small, eval_every, seed=seed,
                        protocol="kf", device=device, out=out, sets=list(sets))
-    from dnsjax_torch.ops import gather, scatter
+    from dnsjax_torch import spans
 
+    c = spans.counters()
     return dict(r, ate_max_m=evaluate_ate(*kept)["absolute_translational_error.max"],
-                launches=dict(encode=gather.LAUNCHES, table_grad=scatter.LAUNCHES))
+                launches=dict(encode=c.get("encode.launches", 0),
+                              table_grad=c.get("table_grad.launches", 0)))
 
 
 def _child(argv: list, cores, what: str) -> dict:
