@@ -55,11 +55,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   3b. parity: the same scene at ``scripts/ab_quality.py``'s reference-parity
      settings (16 x 2 trilinear grid, exact float32 backward, float32
      compute, 4 feature taps, Adam tracking of 50 iterations, no early
-     exit), 8 frames: ATE and PSNR bounds, launches, then its last frame
-     tracked again, which must launch no table gradient;
+     exit), 8 frames: ATE and PSNR bounds, launches, every tracked solve a
+     replay of the one CUDA graph the tracker captured (line
+     ``slam_parity_graph``), then its last frame tracked again, which must
+     launch no table gradient;
   3c. resume: the textured run resumed from phase 3's ``model_20.npz`` with
      Adam tracking (patience 10) and ``grad_levels: 1``, frames 21-29: ATE
-     and PSNR bounds, mean Adam iterations a frame; then the decoder warm-up
+     and PSNR bounds, mean Adam iterations a frame, no captured solve
+     replayed (early exit runs the uncaptured loop); then the decoder warm-up
      (300 rays x 100 iterations) on frame 29 for its two least-seen classes:
      finite losses, a changed map, 200 table-gradient launches (the rays'
      encode and the TV sub-grid's, each iteration);
@@ -831,10 +834,20 @@ def check_run_logs(slam):
 def run_parity(end_frame: int = 8):
     """Phase 3b: the reference-parity schedule, cut to ``end_frame``
     frames (the 500-iteration bootstrap, keysteps at 5, 10 and the last,
-    Adam-tracked frames 2 onwards); then its last frame tracked again,
+    Adam-tracked frames 2 onwards, each a replay of the tracker's one
+    captured solve); then its last frame tracked again,
     which must launch no table gradient (the tracker's encode takes the
     position gradient alone)."""
+    from dnsjax_torch import spans
+
     slam, launches = _drive("slam_parity", OUT_PARITY, PARITY_SETS, end_frame)[:2]
+    c = spans.counters()
+    graph = {k: c.get(k, 0) for k in ("track.solves", "track.graph.captures",
+                                      "track.graph.replays")}
+    print("slam_parity_graph " + json.dumps(graph), flush=True)
+    if graph["track.graph.captures"] != 1 or not (
+            0 < graph["track.graph.replays"] == graph["track.solves"]):
+        raise AssertionError(f"the Adam tracker did not replay one captured solve: {graph}")
     idx = min(end_frame, slam.n_img) - 1
     _reset_counts()
     slam.track_frame(idx, slam._frame_to_device(slam.dataset[idx]))
@@ -849,12 +862,15 @@ def run_resume(end_frame: int = 30):
     import numpy as np
     import torch
 
+    from dnsjax_torch import spans
     from dnsjax_torch.models.decoder import param_leaves
 
     slam, launches, summary = _drive("slam_resume", OUT_RESUME, RESUME_SETS, end_frame,
                                      resume=os.path.join(OUT, "model_20.npz"))
     if slam.track_iters and min(slam.track_iters) < 1:
         raise AssertionError(f"a tracked frame ran no Adam iteration: {slam.track_iters}")
+    if spans.counters().get("track.graph.replays"):
+        raise AssertionError("the Adam tracker with early exit replayed a captured solve")
     idx = summary["frames"] - 1
     cur = slam._frame_to_device(slam.dataset[idx])
     shown = set(np.unique(cur["host"]["label"]).tolist())

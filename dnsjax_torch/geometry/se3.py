@@ -62,7 +62,8 @@ def rotation_to_quat(R: torch.Tensor) -> torch.Tensor:
 def compose_c2w(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation + (..., 3) translation -> (..., 4, 4)."""
     top = torch.cat([R, T[..., :, None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # a device op, not a host copy: a CUDA graph can capture it
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
     bottom = bottom.expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], -2)
 

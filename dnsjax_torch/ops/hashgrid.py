@@ -17,6 +17,7 @@ rows the forward kernel saves.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from dataclasses import dataclass
 
@@ -35,6 +36,23 @@ _CORNERS = np.array(
 )
 
 _SCATTER_MODES = ("xla", "pallas", "pallas_split", "pallas_sr")
+
+
+@functools.lru_cache(maxsize=None)
+def _device_const(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once a (values, dtype,
+    device) and only read: the encode and its backward run inside a CUDA
+    graph's capture too, where no copy from the host may run, and the graph
+    reads the tensor in place."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _corners(dtype, device) -> torch.Tensor:
+    return _device_const(tuple(map(tuple, _CORNERS.tolist())), dtype, device)
+
+
+def _resolutions(spec, dtype, device) -> torch.Tensor:
+    return _device_const(tuple(spec.level_resolutions().tolist()), dtype, device)
 
 
 @dataclass(frozen=True)
@@ -155,7 +173,7 @@ def _tet_offsets_weights(f: torch.Tensor):
 
 def _trilerp_weights(frac: torch.Tensor) -> torch.Tensor:
     """(..., 3) frac -> (..., 8) trilinear corner weights."""
-    c = torch.as_tensor(_CORNERS, dtype=frac.dtype, device=frac.device)
+    c = _corners(frac.dtype, frac.device)
     fac = c * frac[..., None, :] + (1.0 - c) * (1.0 - frac[..., None, :])
     return (fac[..., 0] * fac[..., 1]) * fac[..., 2]
 
@@ -167,7 +185,7 @@ def _corner_indices_weights(p: torch.Tensor, spec: HashGridSpec):
     ``x = p*res``, ``i0 = min(floor(x), res-1)`` and ``frac = x - i0`` are
     separate float32 steps, as in the reference.
     """
-    corners = torch.as_tensor(_CORNERS, device=p.device)
+    corners = _corners(torch.int64, p.device)
     idxs, ws, auxs = [], [], []
     for l, res in enumerate(spec.level_resolutions().tolist()):
         x = p * float(res)
@@ -234,7 +252,7 @@ def _position_dfrac(spec: HashGridSpec, feats, aux) -> torch.Tensor:
         return torch.gather(feats, 2, idx + 1) - torch.gather(feats, 2, idx)
     # dw_c/dfrac_k = product of the other two axes' factors, signed by bit k
     frac = aux
-    c = torch.as_tensor(_CORNERS, dtype=frac.dtype, device=frac.device)
+    c = _corners(frac.dtype, frac.device)
     fac = c * frac[..., None, :] + (1 - c) * (1 - frac[..., None, :])  # (N,L,8,3)
     sign = 2.0 * c - 1.0
     others = torch.stack(
@@ -252,8 +270,7 @@ def _inside(pts: torch.Tensor) -> torch.Tensor:
 def _position_grad(spec: HashGridSpec, pts, feats, aux, g):
     """d(encode)/d(pts) transpose: (N, 3), plain torch on the saved rows."""
     dfrac = torch.einsum("nlkf,nlf->nlk", _position_dfrac(spec, feats, aux), g)
-    res = torch.as_tensor(spec.level_resolutions(), dtype=dfrac.dtype,
-                          device=dfrac.device)
+    res = _resolutions(spec, dfrac.dtype, dfrac.device)
     d_p = (dfrac * res[None, :, None]).sum(1)
     return torch.where(_inside(pts), d_p, torch.zeros_like(d_p))
 
@@ -304,8 +321,7 @@ class _HashEncode(torch.autograd.Function):
         out_dot = torch.zeros((N, L, F), dtype=torch.float32, device=pts.device)
         if pts_dot is not None:
             dfrac = _position_dfrac(spec, feats, aux)  # (N,L,3,F)
-            res = torch.as_tensor(spec.level_resolutions(), dtype=torch.float32,
-                                  device=pts.device)
+            res = _resolutions(spec, torch.float32, pts.device)
             pd = torch.where(_inside(pts), pts_dot, torch.zeros_like(pts_dot))
             out_dot = out_dot + (
                 dfrac * (pd[:, None, :, None] * res[None, :, None, None])

@@ -10,11 +10,40 @@ from __future__ import annotations
 import torch
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod(x, -1)`` of an ``x`` without zeros, with the gradient
+    and the tangent that torch computes for such an ``x``, less torch's
+    check for zeros: that check reads a flag on the host, which no CUDA
+    graph's capture allows."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.cumprod(x, -1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.save_for_forward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return (y * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+    @staticmethod
+    def jvp(ctx, x_t):
+        x, y = ctx.saved_tensors
+        return (x_t / x).cumsum(-1) * y
+
+
 def render_weights(raw_occ: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    """(N, S) occupancy logits -> (N, S) renormalised weights."""
+    """(N, S) occupancy logits -> (N, S) renormalised weights (``eps`` > 0:
+    no transmittance factor is zero)."""
     alpha = torch.sigmoid(10.0 * raw_occ)
     ones = torch.ones_like(alpha[..., :1])
-    trans = torch.cumprod(torch.cat([ones, 1.0 - alpha + eps], -1), -1)[..., :-1]
+    trans = _Cumprod.apply(torch.cat([ones, 1.0 - alpha + eps], -1))[..., :-1]
     weights = alpha * trans
     return weights / (weights.sum(-1, keepdim=True) + eps)
 

@@ -93,7 +93,7 @@ def sample_along_rays(
     if n_surface > 0:
         pin = min(n_surface // 2 + 1, n_surface - 1)
         t_surf = t_surf.clone()
-        t_surf[..., pin] = 0.5
+        t_surf[..., pin].fill_(0.5)  # a device op: a CUDA graph can capture it
         z_valid = gt_depth[..., None] * (0.95 + 0.1 * t_surf[..., None, :])
         z_zero = 1e-3 * (1.0 - t_zero) + max_depth * t_zero  # (..., n_surface)
         parts.append(torch.where((gt_depth > 0)[..., None], z_valid, z_zero[..., None, :]))

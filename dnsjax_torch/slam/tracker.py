@@ -26,6 +26,20 @@ iterations it no longer needs with their launches. A tracked frame is bound
 by launches, not by the device, so the sync costs little. Without early exit
 the host reads one packed vector a frame.
 
+The Adam solve without early exit on a CUDA device and without a ray mesh
+(``Tracker.replays``) has fixed shapes and reads nothing on the host, so
+``track`` captures it whole, draws and packing aside, as one CUDA graph
+(``solve_packed`` over static input buffers, after warm-up solves on the
+capture's stream) and replays that graph for every frame: each call copies
+its inputs into the buffers (the map's parameters that the forward reads,
+the frame, the initial pose and the 50 iterations' draws, drawn ahead from
+``gen`` in the order the loop draws them) and replays. The graph is captured
+again only when an input's shape or dtype changes. Its arithmetic is the
+uncaptured loop's: each step's learning rate and bias corrections are baked
+in as the loop computes them. A replay enters none of the loop's host spans
+(``track.iter``, ``encode``, ``encode_bwd``); it opens ``track.replay`` and
+adds the kernels' launch counts that one solve makes.
+
 Under a ray mesh (``Tracker(mesh=)``, dnsjax's ``make_track_fn(mesh=)``)
 every rank draws its own rays from its own generator, and each iteration's
 loss, loss terms and pose gradient (Adam) or normal equations JtJ, Jtr
@@ -37,7 +51,7 @@ holds the same pose, and the early exit reads the averaged loss.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -85,6 +99,52 @@ class TrackConfig:
         return dict(H=self.H, W=self.W, fx=self.fx, fy=self.fy, cx=self.cx, cy=self.cy)
 
 
+# the map's parameters that ``Tracker.forward`` reads
+FORWARD_PARAMS = ("table", "coarse", "merge", "color", "logit")
+# uncaptured solves on the capture's stream before a capture
+GRAPH_WARMUPS = 2
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of nested dicts and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for item in items for leaf in _leaves(item)]
+
+
+def clone_inputs(tree):
+    """A copy of ``solve_inputs``'s tree in new buffers, outside autograd."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_inputs(v) for k, v in tree.items()}
+    return [clone_inputs(v) for v in tree]
+
+
+@torch.no_grad()
+def fill_inputs(static, inputs) -> None:
+    """Copy ``inputs`` into the buffers of ``static`` (the same tree)."""
+    torch._foreach_copy_(_leaves(static), _leaves(inputs))
+
+
+def _count_launches(counts: Dict[str, float], side: bool) -> None:
+    """Add the kernels' ``*.launches`` of ``counts`` to the counters, and
+    to their ``*.side_launches`` where made on a side stream."""
+    for k, n in counts.items():
+        if k.endswith(".launches"):
+            spans.count(k, n)
+            spans.count(k[: -len("launches")] + "side_launches", n if side else 0)
+
+
+class _SolveGraph(NamedTuple):
+    key: tuple              # the inputs' shapes and dtypes, and the device
+    static: Dict[str, Any]  # the input buffers the graph reads
+    graph: Any              # torch.cuda.CUDAGraph
+    out: torch.Tensor       # the packed (10,) result a replay writes
+    launches: Dict[str, float]  # the kernels' ``*.launches`` counts of one solve
+
+
 class Tracker:
     """Per-frame pose tracking (Adam or LM) against a frozen map."""
 
@@ -92,6 +152,7 @@ class Tracker:
         if cfg.method not in ("adam", "lm"):
             raise ValueError(f"tracking.method={cfg.method!r}: expected adam|lm")
         self.spec, self.cfg, self.dtype, self.mesh = spec, cfg, compute_dtype, mesh
+        self._graph = None  # the captured solve (_SolveGraph) once ``track`` replays
 
     def _pmean(self, *tensors):
         """The tensors averaged over the ray mesh (as they are without one)."""
@@ -105,6 +166,11 @@ class Tracker:
                                     cfg.ignore_edge, cfg.ignore_edge, device=device)
         t_surf, t_zero = draw_z_noise(gen, (), cfg.n_surface, device)
         return {"pix": pix, "t_surf": t_surf, "t_zero": t_zero}
+
+    def draw_ahead(self, gen: torch.Generator, device) -> List[Dict[str, torch.Tensor]]:
+        """The n_iters draws of an Adam solve without early exit, in the
+        order its loop takes them from ``gen``."""
+        return [self.draw(gen, device) for _ in range(self.cfg.n_iters)]
 
     def forward(self, quad, T, frame: Dict[str, Any], draws):
         """Batch assembly + coarse render at pose (quad, T). ``frame``:
@@ -247,7 +313,7 @@ class Tracker:
     def track_adam(self, frame, quad0, T0, draw):
         """Adam pose solve (dnsjax ``track_body``); (best, n_iters_run)."""
         cfg = self.cfg
-        inf = torch.tensor(float("inf"), device=quad0.device)
+        inf = torch.full((), float("inf"), device=quad0.device)  # no host copy
         best = (inf, quad0, T0, inf, inf)
         pose = [quad0, T0]
         mom = [torch.zeros_like(x) for x in pose]
@@ -295,6 +361,88 @@ class Tracker:
         best, _ = self._keep(best, loss_f, quad, T, p_f, d_f)
         return best, it
 
+    @staticmethod
+    def _pack(best) -> torch.Tensor:
+        """[best quad (4), best T (3), best loss, p_loss, d_loss] float32."""
+        loss, bq, bT, p, d = best
+        return torch.cat([bq, bT, torch.stack([loss, p, d])]).to(torch.float32)
+
+    def replays(self, device) -> bool:
+        """Does ``track`` replay a captured solve on ``device``? The Adam
+        solve without early exit on a CUDA device and without a ray mesh
+        does: its shapes and its iterations are fixed, and it reads nothing
+        on the host before its end."""
+        cfg = self.cfg
+        return (torch.device(device).type == "cuda" and cfg.method == "adam"
+                and cfg.patience <= 0 and self.mesh is None)
+
+    @staticmethod
+    def solve_inputs(params, enc_feats, refer_w2c, color, depth, label, quad0, T0, bound,
+                     draws) -> Dict[str, Any]:
+        """What ``solve_packed`` reads, as one tree of tensors; ``draws``:
+        the n_iters iterations' draws, stacked."""
+        return {"params": {k: params[k] for k in FORWARD_PARAMS}, "enc_feats": enc_feats,
+                "refer_w2c": refer_w2c, "colorf": color.reshape(-1, 3),
+                "depthf": depth.reshape(-1), "labelf": label.reshape(-1), "bound": bound,
+                "quad0": quad0, "T0": T0,
+                "draws": {k: torch.stack([d[k] for d in draws]) for k in draws[0]}}
+
+    def solve_packed(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        """``track_adam`` of ``solve_inputs``'s tree, packed: what the CUDA
+        graph captures."""
+        frame = {k: inputs[k] for k in ("params", "enc_feats", "refer_w2c", "colorf",
+                                        "depthf", "labelf", "bound")}
+        d = inputs["draws"]
+        best, _ = self.track_adam(frame, inputs["quad0"], inputs["T0"],
+                                  lambda i: {k: v[i] for k, v in d.items()})
+        return self._pack(best)
+
+    def _capture(self, inputs: Dict[str, Any], key: tuple) -> _SolveGraph:
+        """Warm up and capture ``solve_packed`` over new buffers holding
+        ``inputs``. The warm-ups' launches count as made on the caller's
+        stream; the capture's are held back for its replays to count."""
+        from dnsjax_torch.ops import _cuda
+
+        dev = inputs["quad0"].device
+        static = clone_inputs(inputs)
+        caller, caller_side = torch.cuda.current_stream(dev), _cuda.on_side_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        with spans.tally() as warm, torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUPS):
+                self.solve_packed(static)
+        caller.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread (an asynchronous keystep) may allocate meanwhile
+        with spans.tally() as held, torch.cuda.graph(graph, stream=side,
+                                                     capture_error_mode="thread_local"):
+            out = self.solve_packed(static)
+        for k, n in list(warm.items()) + list(held.items()):
+            if not k.endswith("launches"):  # neither *.launches nor *.side_launches
+                spans.count(k, n)
+        _count_launches(warm, caller_side)
+        spans.count("track.graph.captures")
+        launches = {k: n for k, n in held.items() if k.endswith(".launches")}
+        return _SolveGraph(key, static, graph, out, launches)
+
+    def _replay(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        """The packed result of the captured solve on ``inputs`` (captured
+        first where no graph fits their shapes)."""
+        from dnsjax_torch.ops import _cuda
+
+        dev = inputs["quad0"].device
+        key = (str(dev),) + tuple((tuple(x.shape), x.dtype) for x in _leaves(inputs))
+        if self._graph is None or self._graph.key != key:
+            self._graph = None  # free the old graph's pool before the new capture
+            self._graph = self._capture(inputs, key)
+        g = self._graph
+        fill_inputs(g.static, inputs)
+        with spans.span("track.replay"):
+            g.graph.replay()
+        spans.count("track.graph.replays")
+        _count_launches(g.launches, _cuda.on_side_stream(dev))
+        return g.out.clone()  # the next replay overwrites g.out
+
     def track(self, params, enc_feats, refer_w2c, color, depth, label, quad0, T0,
               bound, gen: torch.Generator, draws=None):
         """Pose solve by ``cfg.method``. Returns (the packed (10,) float32
@@ -302,9 +450,17 @@ class Tracker:
         device, n_iters_run). ``draws``: the iterations' draws (n_iters for
         Adam, lm_iters + 1 for LM, the last for the final LM evaluation);
         by default each is drawn from ``gen`` when it is needed, so the
-        iterations an early exit skips draw nothing."""
+        iterations an early exit skips draw nothing (where ``replays``, all
+        n_iters are drawn ahead, as the loop would draw them)."""
         cfg = self.cfg
         dev = quad0.device
+        spans.count("track.solves")
+        if self.replays(dev):
+            if draws is None:
+                draws = self.draw_ahead(gen, dev)
+            inputs = self.solve_inputs(params, enc_feats, refer_w2c, color, depth, label,
+                                       quad0, T0, bound, draws)
+            return self._replay(inputs), cfg.n_iters
         frame = {"params": params, "enc_feats": enc_feats, "refer_w2c": refer_w2c,
                  "colorf": color.reshape(-1, 3), "depthf": depth.reshape(-1),
                  "labelf": label.reshape(-1), "bound": bound}
@@ -313,8 +469,8 @@ class Tracker:
         else:
             draw = lambda i: draws[i]
         solve = self.track_adam if cfg.method == "adam" else self.track_lm
-        (loss, bq, bT, p, d), n_run = solve(frame, quad0, T0, draw)
-        return torch.cat([bq, bT, torch.stack([loss, p, d])]).to(torch.float32), n_run
+        best, n_run = solve(frame, quad0, T0, draw)
+        return self._pack(best), n_run
 
 
 def pose_init_const_velocity(est_c2w_list: np.ndarray, idx: int,

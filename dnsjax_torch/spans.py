@@ -6,7 +6,9 @@ happens (the driver's frame, load, upload, track, keystep, keyframe,
 checkpoint and log; the tracker's encode, solve, iterations and readback;
 the mapping calls and their iterations; the grid encode and its backward).
 ``count(name, n=1)`` adds to a counter; the kernels' launch counts and
-``bootstrap.seconds`` live here.
+``bootstrap.seconds`` live here. Inside ``tally()`` a thread's counts go to
+the block's own dict instead (a CUDA graph's capture records launches that
+only its replays make).
 
 Off, the default, a span is one shared null context: it reads no clock
 and keeps nothing. Tracing is on after ``enable()`` (until ``disable()``),
@@ -102,9 +104,26 @@ def span(name: str, frame: Optional[int] = None):
 
 
 def count(name: str, n: float = 1) -> None:
-    """Add ``n`` to the counter ``name`` (from any thread)."""
+    """Add ``n`` to the counter ``name`` (from any thread), or to the
+    thread's innermost ``tally``."""
+    held = getattr(_local, "tally", None)
+    if held is not None:
+        held[name] = held.get(name, 0) + n
+        return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """Hold back the counts this thread makes inside the block: they add to
+    the yielded dict, not to the counters."""
+    outer = getattr(_local, "tally", None)
+    _local.tally = held = {}
+    try:
+        yield held
+    finally:
+        _local.tally = outer
 
 
 def spans() -> List[Span]:

@@ -9,8 +9,16 @@ and all corners, its level-draw mode and its values-as-given mode) 1e-5
 of each row's sum of contribution magnitudes plus 1e-7, the bound of the
 float32 atomics' summation order; the sorted scatter-add the same bound against its twin,
 and bit-for-bit equality between two launches (it uses no atomics).
+
+The Adam tracker's captured solve (``slam/tracker.py``) against the same
+solve uncaptured, on ``tests/test_torch_track_graph.py``'s small problem
+at the benchmark's 50 steps: the packed result equal bit for bit (the same
+kernels in the same order), the graph captured once and replayed for every
+frame after, and each replay counting the encode launches of one
+uncaptured solve.
 """
 
+import threading
 from types import SimpleNamespace
 
 import pytest
@@ -18,6 +26,7 @@ import torch
 
 from dnsjax_torch import spans
 from dnsjax_torch.ops import encodings, gather, hashgrid, scatter
+from dnsjax_torch.slam import tracker as ttrk
 
 pytestmark = pytest.mark.cuda
 
@@ -253,3 +262,103 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):  # 33 odd features need 33 lanes a row
         scatter.sorted_segment_sum(torch.zeros((4,), device=dev, dtype=torch.int32),
                                    torch.zeros((4, 33), device=dev), 16)
+
+
+def _tracker_pair(dev):
+    """The small tracking problem on the card, and a second tracker of the
+    same configuration held to the uncaptured loop."""
+    from test_torch_track_graph import problem
+
+    p = problem(dev, n_iters=50)
+    eager = ttrk.Tracker(p.tracker.spec, p.tracker.cfg, torch.float32)
+    eager.replays = lambda device: False
+    assert p.tracker.replays(dev)
+    return p, eager
+
+
+def _same(got, ref) -> bool:
+    assert torch.isfinite(ref).all()
+    return torch.equal(got, ref)
+
+
+def test_tracker_graph_replays_the_uncaptured_solve(dev):
+    """Frames 1-3 with the map changed in place between them, on the same
+    draws, then frame 3 drawn from two generators seeded alike: one
+    capture, a replay per call, and a replay counts the encode launches of
+    one uncaptured solve (the first call's warm-ups add GRAPH_WARMUPS
+    solves' worth), none of them on a side stream."""
+    from test_torch_track_graph import update_map
+
+    p, eager = _tracker_pair(dev)
+    spans.clear()
+    per_solve = []
+    for k, i in enumerate((1, 2, 3)):
+        if k:
+            update_map(p.params, k)
+        draws = eager.draw_ahead(torch.Generator(dev).manual_seed(k), dev)
+        c0 = spans.counters().get("encode.launches", 0)
+        ref, n_ref = eager.track(*p.args(i), None, draws=draws)
+        c1 = spans.counters()["encode.launches"]
+        got, n_got = p.tracker.track(*p.args(i), None, draws=draws)
+        per_solve.append((c1 - c0, spans.counters()["encode.launches"] - c1))
+        assert n_ref == n_got == 50
+        assert _same(got, ref), (i, got, ref)
+    got, _ = p.tracker.track(*p.args(3), torch.Generator(dev).manual_seed(9))
+    ref, _ = eager.track(*p.args(3), torch.Generator(dev).manual_seed(9))
+    assert _same(got, ref)
+    c = spans.counters()
+    assert c["track.graph.captures"] == 1 and c["track.graph.replays"] == 4
+    assert c["track.solves"] == 8
+    n = per_solve[0][0]
+    assert n > 0 and per_solve[0][1] == (1 + ttrk.GRAPH_WARMUPS) * n
+    assert all(a == b == n for a, b in per_solve[1:]), per_solve
+    assert c.get("encode.side_launches", 0) == 0
+
+
+def test_tracker_captures_beside_a_thread_that_allocates(dev):
+    """The capture (thread-local mode) while another thread allocates and
+    launches on a stream of its own, as an asynchronous keystep does: the
+    thread runs through, and the replays equal the uncaptured solve."""
+    p, eager = _tracker_pair(dev)
+    draws = eager.draw_ahead(torch.Generator(dev).manual_seed(3), dev)
+    ref, _ = eager.track(*p.args(2), None, draws=draws)
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def churn():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                while not stop.is_set():
+                    x = torch.arange(1 << 18, device=dev, dtype=torch.float32)
+                    (x * 2.0).sum()
+                    del x
+                    rounds[0] += 1
+                torch.cuda.current_stream(dev).synchronize()
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    thread = threading.Thread(target=churn, daemon=True)
+    thread.start()
+    try:
+        got = [p.tracker.track(*p.args(2), None, draws=draws)[0] for _ in range(2)]
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors and rounds[0] > 0, errors
+    assert spans.counters()["track.graph.captures"] >= 1
+    assert all(_same(g, ref) for g in got), (got, ref)
+
+
+def test_tracker_graph_captures_the_plain_encode(dev, monkeypatch):
+    """With the encode's plain version in the kernel's place (the gate's
+    ``port:cuda-plain`` column) the solve captures too, equals the same
+    solve uncaptured and counts no kernel launch."""
+    monkeypatch.setattr(gather, "encode_forward", gather.encode_forward_plain)
+    p, eager = _tracker_pair(dev)
+    spans.clear()
+    for i in (1, 2):
+        draws = eager.draw_ahead(torch.Generator(dev).manual_seed(i), dev)
+        ref, _ = eager.track(*p.args(i), None, draws=draws)
+        got, _ = p.tracker.track(*p.args(i), None, draws=draws)
+        assert _same(got, ref), (i, got, ref)
+    c = spans.counters()
+    assert c["track.graph.replays"] == 2 and not c.get("encode.launches")

@@ -195,3 +195,21 @@ def test_counters_add_from_many_threads():
     assert spans.counters()["c"] == n_threads * n_adds
     spans.clear()
     assert spans.counters() == {}
+
+
+def test_tally_holds_back_this_thread_s_counts():
+    """Inside ``tally`` this thread's counts add to the block's dict (the
+    inner block's to its own), another thread's still reach the counters."""
+    spans.clear()
+    with spans.tally() as outer:
+        spans.count("a", 2)
+        with spans.tally() as inner:
+            spans.count("a")
+        t = threading.Thread(target=spans.count, args=("b", 5))
+        t.start()
+        t.join(timeout=60)
+        spans.count("a")
+    spans.count("c")
+    assert outer == {"a": 3} and inner == {"a": 1}
+    assert spans.counters() == {"b": 5, "c": 1}
+    spans.clear()
