@@ -292,6 +292,8 @@ class _HashEncode(torch.autograd.Function):
         table, pts, spec, want_res = inputs
         _, feats, idx, w, aux = output
         ctx.spec = spec
+        # the TV term's backward is told apart from the rays' by its span's tag
+        ctx.tag = "map.smooth" if spans.within("map.smooth") else None
         ctx.mark_non_differentiable(feats, idx, w, aux)
         ctx.save_for_backward(pts, feats, idx, w, aux)
         ctx.save_for_forward(pts, feats, idx, w, aux)
@@ -302,7 +304,7 @@ class _HashEncode(torch.autograd.Function):
         if feats.numel() == 0 and pts.numel() > 0:
             raise RuntimeError("hash_encode: backward of a forward run without residuals")
         spec = ctx.spec
-        with spans.span("encode_bwd"):
+        with spans.span("encode_bwd", tag=ctx.tag):
             g = g.reshape(-1, spec.n_levels, spec.n_features).to(torch.float32)
             d_table = d_pts = None
             if ctx.needs_input_grad[0]:

@@ -1083,6 +1083,7 @@ class DNSSLAM:
             f0 = self._frame_to_device(self.dataset[0])
             self.gt_c2w[0] = f0["host"]["c2w"]
             self.estimate_c2w[0] = self.gt_c2w[0]
+            spans.count("pose.known")
             self.keyframes.add(f0["host"], self.gt_c2w[0])
             if n > 1:
                 f1 = self.dataset[1]
@@ -1140,6 +1141,7 @@ class DNSSLAM:
                     self.gt_c2w[idx] = cur["host"]["c2w"]
                     if idx <= 1 or self.use_gt_camera:
                         self.estimate_c2w[idx] = cur["host"]["c2w"]
+                        spans.count("pose.known")
                         if self._refer_color is None:
                             self._refer_w2c = torch.as_tensor(
                                 np.linalg.inv(self.estimate_c2w[idx]).astype(np.float32),

@@ -104,6 +104,15 @@ def smoothness_grid_occ(params, spec, pts01, cfg: MapConfig, compute_dtype):
     return coarse_apply(params, pe, grid, compute_dtype)[:, 0].reshape(g, g, g)
 
 
+def smoothness_loss(params, spec, bound: torch.Tensor, draws, cfg: MapConfig, compute_dtype):
+    """The TV term on the sub-grid that ``draws`` place, in the ``map.smooth``
+    span; the counter ``map.smooth.points`` adds its points."""
+    with spans.span("map.smooth"):
+        p01 = smoothness_grid_pts01(bound, draws["sm_offset"], draws["sm_jitter"], cfg)
+        spans.count("map.smooth.points", p01.shape[0])
+        return tv_smoothness_loss(smoothness_grid_occ(params, spec, p01, cfg, compute_dtype))
+
+
 class MapLoss:
     """The per-iteration mapping loss over a window of ``n_target`` frames.
 
@@ -191,11 +200,8 @@ class MapLoss:
         out = render_fine(params, self.spec, pts, z, gt_l, code, window["bound"], self.dtype)
 
         if self.smooth_iter(it):
-            p01 = smoothness_grid_pts01(window["bound"], draws["sm_offset"],
-                                        draws["sm_jitter"], cfg)
-            sm_loss = tv_smoothness_loss(
-                smoothness_grid_occ(params, self.spec, p01, cfg, self.dtype)
-            ) * float(max(cfg.smooth_every, 1))
+            sm_loss = smoothness_loss(params, self.spec, window["bound"], draws, cfg,
+                                      self.dtype) * float(max(cfg.smooth_every, 1))
         else:
             sm_loss = torch.zeros((), device=z.device)
 
@@ -280,8 +286,7 @@ class DecoderInitLoss:
         p_loss = photometric_loss(gt_c, out.color, mask)
         d_loss = depth_l1_loss(gt_d, out.depth, mask)
         l_loss = semantic_ce_loss(gt_l, out.logits, mask)
-        p01 = smoothness_grid_pts01(bound, draws["sm_offset"], draws["sm_jitter"], cfg)
-        sm_loss = tv_smoothness_loss(smoothness_grid_occ(params, spec, p01, cfg, self.dtype))
+        sm_loss = smoothness_loss(params, spec, bound, draws, cfg, self.dtype)
         fs_loss, op_loss = freespace_opacity_loss(
             z, gt_d, out.fine_latents[..., 0], mask,
             truncation=cfg.truncation, sigma=cfg.opacity_sigma,
@@ -314,7 +319,8 @@ def make_decoder_init_fn(spec: DecoderSpec, cfg: MapConfig, n_iters: int = 100,
                     opt.zero_grad(set_to_none=True)
                     loss = loss_fn(params, frame, class_mask, d)
                     loss.backward()
-                    opt.step()
+                    with spans.span("map.adam"):
+                        opt.step()
                     losses.append(loss.detach())
         finally:
             for p in leaves:
@@ -360,7 +366,8 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
                     loss, aux = _reduce_step(reduce, loss, aux, leaves + [quads, Ts])
                 quads.grad.mul_(pose_train)
                 Ts.grad.mul_(pose_train)
-                opt.step()
+                with spans.span("map.adam"):
+                    opt.step()
                 losses.append(loss.detach())
     finally:
         for p in leaves:

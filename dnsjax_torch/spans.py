@@ -1,26 +1,30 @@
 """The port's own spans and counters: where the loop's host time goes, and
 how often its kernels launch.
 
-``span(name, frame=None)`` is a context manager placed where the work
-happens (the driver's frame, load, upload, track, keystep, keyframe,
+``span(name, frame=None, tag=None)`` is a context manager placed where the
+work happens (the driver's frame, load, upload, track, keystep, keyframe,
 checkpoint and log; the tracker's encode, solve, iterations and readback;
-the mapping calls and their iterations; the grid encode and its backward).
-``count(name, n=1)`` adds to a counter; the kernels' launch counts and
-``bootstrap.seconds`` live here. Inside ``tally()`` a thread's counts go to
-the block's own dict instead (a CUDA graph's capture records launches that
-only its replays make).
+the mapping calls, their iterations, TV terms and Adam updates; the grid
+encode and its backward, whose span carries the tag ``map.smooth`` when
+its forward ran inside that span).
+``count(name, n=1)`` adds to a counter; the kernels' launch counts,
+``bootstrap.seconds``, ``map.smooth.points`` (the TV terms' points) and
+``pose.known`` (frames whose pose came from the dataset) live here. Inside
+``tally()`` a thread's counts go to the block's own dict instead (a CUDA
+graph's capture records launches that only its replays make).
 
 Off, the default, a span is one shared null context: it reads no clock
 and keeps nothing. Tracing is on after ``enable()`` (until ``disable()``),
 and in a thread while ``torch.profiler`` records it; whether a span is on
 is decided when it is entered, so a span open when the profiler stops
 still closes and is kept. An on span keeps its name, start and end
-(``time.perf_counter_ns``), its parent's id, its thread and its frame (a
+(``time.perf_counter_ns``), its parent's id, its thread, its frame (a
 span without a frame takes its parent's, so every span of a frame carries
-that frame's index), and enters ``record_function("dns.<name>")`` while the
-profiler records, so a profiler trace shows the program's spans on the
-device's clock. The store keeps at most ``MAX_SPANS`` spans and counts
-the rest in ``spans.dropped``. Counters are always on.
+that frame's index) and its tag, and enters
+``record_function("dns.<name>")`` while the profiler records, so a
+profiler trace shows the program's spans on the device's clock. The store
+keeps at most ``MAX_SPANS`` spans and counts the rest in
+``spans.dropped``. Counters are always on.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ class Span(NamedTuple):
     parent: Optional[int]  # the enclosing span's id in the same thread
     thread: int
     frame: Optional[int]
+    tag: Optional[str] = None
 
 
 _NULL = contextlib.nullcontext()
@@ -61,10 +66,10 @@ _NULL = contextlib.nullcontext()
 class _Open:
     """An entered span; kept in the store when it exits."""
 
-    __slots__ = ("name", "frame", "id", "parent", "start", "range")
+    __slots__ = ("name", "frame", "tag", "id", "parent", "start", "range")
 
-    def __init__(self, name: str, frame: Optional[int]):
-        self.name, self.frame = name, frame
+    def __init__(self, name: str, frame: Optional[int], tag: Optional[str]):
+        self.name, self.frame, self.tag = name, frame, tag
 
     def __enter__(self):
         stack = getattr(_local, "stack", None)
@@ -89,18 +94,25 @@ class _Open:
         _local.stack.pop()
         if len(_spans) < MAX_SPANS:
             _spans.append(Span(self.id, self.name, self.start, end, self.parent,
-                               threading.get_ident(), self.frame))
+                               threading.get_ident(), self.frame, self.tag))
         else:
             count("spans.dropped")
         return False
 
 
-def span(name: str, frame: Optional[int] = None):
+def span(name: str, frame: Optional[int] = None, tag: Optional[str] = None):
     """A span named ``name`` over the ``with`` block; ``frame``: the frame
-    index it belongs to (default: its parent's)."""
+    index it belongs to (default: its parent's); ``tag``: what the work
+    belongs to where its name alone does not say."""
     if not (_on or _profiling()):
         return _NULL
-    return _Open(name, frame)
+    return _Open(name, frame, tag)
+
+
+def within(name: str) -> bool:
+    """Is a span named ``name`` open in this thread? (False while tracing
+    is off: no span is open then.)"""
+    return any(s.name == name for s in getattr(_local, "stack", ()))
 
 
 def count(name: str, n: float = 1) -> None:
