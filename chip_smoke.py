@@ -57,7 +57,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      compute, 4 feature taps, Adam tracking of 50 iterations, no early
      exit), 8 frames: ATE and PSNR bounds, launches, every tracked solve a
      replay of the one CUDA graph the tracker captured (line
-     ``slam_parity_graph``), then its last frame tracked again, which must
+     ``slam_parity_graph``), every mapping iteration (bootstrap and
+     keysteps) a replay of its program's captured pieces, one capture a
+     program (line ``slam_parity_map_graph``), then its last frame tracked
+     again, which must
      launch no table gradient;
   3c. resume: the textured run resumed from phase 3's ``model_20.npz`` with
      Adam tracking (patience 10) and ``grad_levels: 1``, frames 21-29: ATE
@@ -835,7 +838,8 @@ def run_parity(end_frame: int = 8):
     """Phase 3b: the reference-parity schedule, cut to ``end_frame``
     frames (the 500-iteration bootstrap, keysteps at 5, 10 and the last,
     Adam-tracked frames 2 onwards, each a replay of the tracker's one
-    captured solve); then its last frame tracked again,
+    captured solve, every mapping iteration a replay of its program's
+    captured pieces); then its last frame tracked again,
     which must launch no table gradient (the tracker's encode takes the
     position gradient alone)."""
     from dnsjax_torch import spans
@@ -848,6 +852,12 @@ def run_parity(end_frame: int = 8):
     if graph["track.graph.captures"] != 1 or not (
             0 < graph["track.graph.replays"] == graph["track.solves"]):
         raise AssertionError(f"the Adam tracker did not replay one captured solve: {graph}")
+    maps = {k: c.get(k, 0) for k in ("map.iters", "map.graph.captures", "map.graph.replays")}
+    maps["programs"] = len(slam._map_fns)  # the bootstrap's and the keystep's
+    print("slam_parity_map_graph " + json.dumps(maps), flush=True)
+    if maps["map.graph.captures"] != maps["programs"] or not (
+            0 < maps["map.graph.replays"] == maps["map.iters"]):
+        raise AssertionError(f"a mapping iteration did not replay its program's pieces: {maps}")
     idx = min(end_frame, slam.n_img) - 1
     _reset_counts()
     slam.track_frame(idx, slam._frame_to_device(slam.dataset[idx]))

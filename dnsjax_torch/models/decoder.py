@@ -132,10 +132,20 @@ def grid_encode_override(fn):
         _GRID_ENCODE.reset(token)
 
 
+def grid_encode(params: Params, pts01: torch.Tensor, spec: DecoderSpec) -> torch.Tensor:
+    """Points in [0,1]^3 -> grid features (..., L*F), through the grid
+    encode in force (``grid_encode_override``)."""
+    return _GRID_ENCODE.get()(params["table"], pts01, spec.grid)
+
+
+def blob_encode(pts01: torch.Tensor, spec: DecoderSpec) -> torch.Tensor:
+    """Points in [0,1]^3 -> OneBlob features (..., 48)."""
+    return oneblob_encode(pts01, spec.n_bins, spec.oneblob_kernel)
+
+
 def pos_encode(params: Params, pts01: torch.Tensor, spec: DecoderSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """Points in [0,1]^3 -> (pe (..., 48), grid (..., L*F))."""
-    pe = oneblob_encode(pts01, spec.n_bins, spec.oneblob_kernel)
-    return pe, _GRID_ENCODE.get()(params["table"], pts01, spec.grid)
+    return blob_encode(pts01, spec), grid_encode(params, pts01, spec)
 
 
 def coarse_apply(params, pe, grid, compute_dtype=torch.bfloat16) -> torch.Tensor:

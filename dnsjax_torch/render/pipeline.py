@@ -1,6 +1,7 @@
 """Field query + compositing, PyTorch port of dnsjax/render/pipeline.py:
 ``render_coarse`` (tracking: coarse head only) and ``render_fine`` (mapping:
-class-dispatched fine heads, plus coarse latents for distillation)."""
+class-dispatched fine heads, plus coarse latents for distillation), which
+``render_fine_encoded`` continues from the grid encode's output."""
 
 from __future__ import annotations
 
@@ -8,7 +9,14 @@ from typing import NamedTuple
 
 import torch
 
-from dnsjax_torch.models.decoder import coarse_apply, fine_apply, out_apply, pos_encode
+from dnsjax_torch.models.decoder import (
+    blob_encode,
+    coarse_apply,
+    fine_apply,
+    grid_encode,
+    out_apply,
+    pos_encode,
+)
 from dnsjax_torch.render.composite import composite_channels, composite_rays
 
 
@@ -48,7 +56,17 @@ def render_fine(params, spec, pts_w, z_vals, classes, pixel_code, bound,
     """pts_w (N, S, 3), z_vals (N, S), classes (N,) per-ray GT class,
     pixel_code (N, S, h)."""
     N, S, _ = pts_w.shape
-    pe, grid = pos_encode(params, normalize_pts(pts_w, bound).reshape(N * S, 3), spec)
+    pts01 = normalize_pts(pts_w, bound).reshape(N * S, 3)
+    return render_fine_encoded(params, spec, pts01, grid_encode(params, pts01, spec), z_vals,
+                               classes, pixel_code, compute_dtype)
+
+
+def render_fine_encoded(params, spec, pts01, grid, z_vals, classes, pixel_code,
+                        compute_dtype=torch.bfloat16) -> RenderOut:
+    """``render_fine`` after the grid encode: pts01 (N*S, 3) the samples in
+    [0,1]^3, grid (N*S, L*F) their grid features, z_vals (N, S)."""
+    N, S = z_vals.shape
+    pe = blob_encode(pts01, spec)
     coarse_latents = coarse_apply(params, pe, grid, compute_dtype)
     fine_latents = fine_apply(
         params, classes, pe.reshape(N, S, -1), grid.reshape(N, S, -1), compute_dtype

@@ -11,6 +11,10 @@ are stop-gradients.
 Each iteration's random numbers come from one function, ``draw``, and the
 loss takes them as input, so a test can feed dnsjax's draws to the port.
 
+The loss (``MapLoss.compose``) is four pieces with the two grid encodes
+between them; on a card ``map_step`` replays CUDA graphs of the pieces
+around the eager encodes where ``replays`` holds (``slam/map_graph.py``).
+
 ``make_decoder_init_fn`` is the warm-up of new class decoders (dnsjax's
 ``make_decoder_init_fn``): a fresh Adam over the map's parameters (no
 poses), ``n_iters`` iterations of class-restricted rays of the current
@@ -21,6 +25,7 @@ on every iteration, unscaled (``smooth_every`` does not apply).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
@@ -37,10 +42,16 @@ from dnsjax_torch.losses.losses import (
     semantic_ce_loss,
     tv_smoothness_loss,
 )
-from dnsjax_torch.models.decoder import DecoderSpec, coarse_apply, param_leaves, pos_encode
+from dnsjax_torch.models.decoder import (
+    DecoderSpec,
+    blob_encode,
+    coarse_apply,
+    grid_encode,
+    param_leaves,
+)
 from dnsjax_torch.models.features import match_features, match_features_batched
 from dnsjax_torch.ops.oneblob import linspace01
-from dnsjax_torch.render.pipeline import render_fine
+from dnsjax_torch.render.pipeline import normalize_pts, render_fine, render_fine_encoded
 from dnsjax_torch.render.sampling import draw_z_noise, sample_along_rays
 from dnsjax_torch.slam.sampling import (
     sample_class_balanced_pixels,
@@ -97,11 +108,12 @@ def smoothness_grid_pts01(bound: torch.Tensor, offset_u: torch.Tensor,
     return ((pts - bound[:, 0]) / extent).reshape(-1, 3)
 
 
-def smoothness_grid_occ(params, spec, pts01, cfg: MapConfig, compute_dtype):
-    """Occupancy logits on the TV sub-grid, (g, g, g)."""
+def smoothness_grid_occ(params, spec, pts01, grid, cfg: MapConfig, compute_dtype):
+    """Occupancy logits on the TV sub-grid, (g, g, g), from its points and
+    their grid features."""
     g = cfg.smooth_pts - 1
-    pe, grid = pos_encode(params, pts01, spec)
-    return coarse_apply(params, pe, grid, compute_dtype)[:, 0].reshape(g, g, g)
+    occ = coarse_apply(params, blob_encode(pts01, spec), grid, compute_dtype)[:, 0]
+    return occ.reshape(g, g, g)
 
 
 def smoothness_loss(params, spec, bound: torch.Tensor, draws, cfg: MapConfig, compute_dtype):
@@ -110,7 +122,8 @@ def smoothness_loss(params, spec, bound: torch.Tensor, draws, cfg: MapConfig, co
     with spans.span("map.smooth"):
         p01 = smoothness_grid_pts01(bound, draws["sm_offset"], draws["sm_jitter"], cfg)
         spans.count("map.smooth.points", p01.shape[0])
-        return tv_smoothness_loss(smoothness_grid_occ(params, spec, p01, cfg, compute_dtype))
+        grid = grid_encode(params, p01, spec)
+        return tv_smoothness_loss(smoothness_grid_occ(params, spec, p01, grid, cfg, compute_dtype))
 
 
 class MapLoss:
@@ -155,6 +168,11 @@ class MapLoss:
             d["sm_jitter"] = torch.rand(3, generator=gen, device=dev)
         return d
 
+    def lambda_lt(self, window, it: int) -> float:
+        """The distillation term's weight at iteration ``it``: 0 while
+        ``it <= lt_gate_iter``."""
+        return 10.0 if it > int(window["lt_gate_iter"]) else 0.0
+
     def sample_targets(self, c2w_live, window, draws):
         """Ray batch of every target: gt colour/depth/label, rays, z values,
         points and the reference views' w2c."""
@@ -177,7 +195,13 @@ class MapLoss:
         refer_c2w = torch.where((src >= 0)[..., None, None], live, window["refer_fixed_c2w"])
         return gt_c, gt_d, gt_l, z, pts, invert_se3(refer_c2w), inside
 
-    def __call__(self, params, quads, Ts, window, draws, it: int):
+    # The iteration's four pieces, which the grid encodes separate. Each
+    # takes and returns tensors only; ``slam/map_graph.py`` captures each as
+    # CUDA graphs and replays them under the same names.
+    def rays(self, params, quads, Ts, window, draws):
+        """Piece (a): poses, rays, z values, points and their merged pixel
+        codes; (pts01 (N*S, 3) the points in [0,1]^3, code (N, S, h), z,
+        gt_c, gt_d, gt_l, mask) for the N = T * n_ray rays."""
         cfg, T, n_ray, S = self.cfg, self.T, self.n_ray, self.S
         c2w_live = compose_c2w(quat_to_rotation(quads), Ts)
         if "pose_src" in window:
@@ -197,17 +221,17 @@ class MapLoss:
         gt_c, gt_d, gt_l, z, pts, code, inside = map(
             flat, (gt_c, gt_d, gt_l, z, pts, code, inside)
         )
-        out = render_fine(params, self.spec, pts, z, gt_l, code, window["bound"], self.dtype)
-
-        if self.smooth_iter(it):
-            sm_loss = smoothness_loss(params, self.spec, window["bound"], draws, cfg,
-                                      self.dtype) * float(max(cfg.smooth_every, 1))
-        else:
-            sm_loss = torch.zeros((), device=z.device)
-
         mask = inside
         if "frame_valid" in window:
             mask = mask & (torch.repeat_interleave(window["frame_valid"], n_ray) > 0)
+        pts01 = normalize_pts(pts, window["bound"]).reshape(T * n_ray * S, 3)
+        return pts01, code, z, gt_c, gt_d, gt_l, mask
+
+    def ray_terms(self, params, pts01, grid, code, z, gt_c, gt_d, gt_l, mask):
+        """Piece (b), after the rays' encode (``grid``): the fine render and
+        the six ray terms (p, d, l, lt, fs, op)."""
+        cfg = self.cfg
+        out = render_fine_encoded(params, self.spec, pts01, grid, z, gt_l, code, self.dtype)
         p_loss = photometric_loss(gt_c, out.color, mask)
         d_loss = depth_l1_loss(gt_d, out.depth, mask)
         l_loss = semantic_ce_loss(gt_l, out.logits, mask)
@@ -216,16 +240,57 @@ class MapLoss:
             z, gt_d, out.fine_latents[..., 0], mask,
             truncation=cfg.truncation, sigma=cfg.opacity_sigma,
         )
-        lambda_lt = 10.0 if it > int(window["lt_gate_iter"]) else 0.0
-        loss = (
+        return p_loss, d_loss, l_loss, lt_loss, fs_loss, op_loss
+
+    def smooth_points(self, bound, draws):
+        """Piece (c): the TV sub-grid's points in [0,1]^3."""
+        return smoothness_grid_pts01(bound, draws["sm_offset"], draws["sm_jitter"], self.cfg)
+
+    def smooth_total(self, params, p01, grid, terms, lambda_lt):
+        """Piece (d), after the TV encode (``grid``): the TV term (scaled by
+        ``smooth_every``) and the weighted sum of the seven terms;
+        (loss, sm_loss)."""
+        occ = smoothness_grid_occ(params, self.spec, p01, grid, self.cfg, self.dtype)
+        sm_loss = tv_smoothness_loss(occ) * float(max(self.cfg.smooth_every, 1))
+        return self.weighted(terms, sm_loss, lambda_lt), sm_loss
+
+    def weighted(self, terms, sm_loss, lambda_lt):
+        """The loss: the seven terms' weighted sum."""
+        cfg = self.cfg
+        p_loss, d_loss, l_loss, lt_loss, fs_loss, op_loss = terms
+        return (
             cfg.lambda_p * p_loss + cfg.lambda_d * d_loss + cfg.lambda_l * l_loss
             + lambda_lt * lt_loss + cfg.lambda_sm * sm_loss
             + cfg.lambda_fs * fs_loss + cfg.lambda_op * op_loss
         )
+
+    def compose(self, pieces, params, quads, Ts, window, draws, smooth: bool, lambda_lt):
+        """(loss, the seven terms) from the four pieces of ``pieces`` (this
+        loss's own, or ``map_graph.Pieces``' replays of them, which read
+        their own copies of ``window`` and ``draws``) and the grid encodes
+        between them, in this order; the TV term's points, encode and
+        piece (d) in the ``map.smooth`` span, when ``smooth``."""
+        pts01, code, z, gt_c, gt_d, gt_l, mask = pieces.rays(params, quads, Ts, window, draws)
+        grid = grid_encode(params, pts01, self.spec)
+        terms = pieces.ray_terms(params, pts01, grid, code, z, gt_c, gt_d, gt_l, mask)
+        if smooth:
+            with spans.span("map.smooth"):
+                p01 = pieces.smooth_points(window["bound"], draws)
+                spans.count("map.smooth.points", p01.shape[0])
+                loss, sm_loss = pieces.smooth_total(
+                    params, p01, grid_encode(params, p01, self.spec), terms, lambda_lt)
+        else:
+            sm_loss = torch.zeros((), device=z.device)
+            loss = self.weighted(terms, sm_loss, lambda_lt)
+        p_loss, d_loss, l_loss, lt_loss, fs_loss, op_loss = terms
         aux = {"p_loss": p_loss, "d_loss": d_loss, "l_loss": l_loss,
                "lt_loss": lt_loss, "sm_loss": sm_loss, "fs_loss": fs_loss,
                "op_loss": op_loss}
         return loss, aux
+
+    def __call__(self, params, quads, Ts, window, draws, it: int):
+        return self.compose(self, params, quads, Ts, window, draws, self.smooth_iter(it),
+                            self.lambda_lt(window, it))
 
 
 def make_optimizer(params, quads: torch.Tensor, Ts: torch.Tensor, cfg: MapConfig):
@@ -332,8 +397,23 @@ def make_decoder_init_fn(spec: DecoderSpec, cfg: MapConfig, n_iters: int = 100,
     return fn
 
 
+def replays(cfg: MapConfig, device, reduce=None) -> bool:
+    """Does ``map_step`` replay the iteration's captured pieces
+    (``slam/map_graph.py``)? On a CUDA device, without a ``reduce`` (no ray
+    mesh), in the main thread on the default stream (not in the worker
+    thread and on the stream of an asynchronous or a composed keystep),
+    and with the TV term on every iteration, so that every iteration runs
+    the same program."""
+    from dnsjax_torch.ops import _cuda
+
+    return (torch.device(device).type == "cuda" and reduce is None
+            and cfg.smooth_every <= 1
+            and threading.current_thread() is threading.main_thread()
+            and not _cuda.on_side_stream(device))
+
+
 def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator,
-             n_iters: int, reduce=None, draws=None):
+             n_iters: int, reduce=None, draws=None, graphs=None):
     """Run ``n_iters`` optimisation iterations with a fresh Adam.
 
     Updates ``params`` in place; returns (quads, Ts, aux) where aux holds
@@ -344,13 +424,25 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
     combines the iteration's [loss, loss terms...] and [map gradients
     (table first)..., quads gradient, Ts gradient] over the ranks before
     each update (``parallel/mesh.py``). ``draws``: each iteration's draws
-    (default: from ``gen``).
+    (default: from ``gen``). ``graphs``: a ``map_graph.MapGraphs`` whose
+    captured pieces the iterations replay where ``replays`` says so (all
+    ``n_iters`` draws are then taken ahead, in the order the loop takes
+    them); else, and without it, the loop runs uncaptured. The counters
+    ``map.iters`` and ``map.graph.replays`` add each iteration, and each
+    that replayed.
     """
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    quads = quads0.detach().clone().requires_grad_(True)
-    Ts = Ts0.detach().clone().requires_grad_(True)
+    pieces = None
+    if graphs is not None and replays(loss_fn.cfg, quads0.device, reduce):
+        if draws is None:
+            draws = [loss_fn.draw(gen, window, it) for it in range(n_iters)]
+        pieces = graphs.pieces_for(loss_fn, params, quads0, Ts0, window, draws)
+        quads, Ts = pieces.quads, pieces.Ts  # holding quads0, Ts0
+    else:
+        quads = quads0.detach().clone().requires_grad_(True)
+        Ts = Ts0.detach().clone().requires_grad_(True)
     opt = make_optimizer(params, quads, Ts, loss_fn.cfg)
     pose_train = window["pose_train"][:, None]
     losses: List[torch.Tensor] = []
@@ -358,9 +450,12 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
     try:
         for it in range(n_iters):
             with spans.span("map.iter"):
-                d = draws[it] if draws is not None else loss_fn.draw(gen, window, it)
                 opt.zero_grad(set_to_none=True)
-                loss, aux = loss_fn(params, quads, Ts, window, d, it)
+                if pieces is None:
+                    d = draws[it] if draws is not None else loss_fn.draw(gen, window, it)
+                    loss, aux = loss_fn(params, quads, Ts, window, d, it)
+                else:
+                    loss, aux = pieces.iteration(it)
                 loss.backward()
                 if reduce is not None:
                     loss, aux = _reduce_step(reduce, loss, aux, leaves + [quads, Ts])
@@ -368,14 +463,18 @@ def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator
                 Ts.grad.mul_(pose_train)
                 with spans.span("map.adam"):
                     opt.step()
-                losses.append(loss.detach())
+                losses.append(loss.detach().clone())  # a replay's loss: the graph's buffer
+                spans.count("map.iters")
+                if pieces is not None:
+                    spans.count("map.graph.replays")
     finally:
         for p in leaves:
             p.requires_grad_(False)
             p.grad = None
-    aux = {k: v.detach() for k, v in aux.items()}
+        quads.grad = Ts.grad = None
+    aux = {k: v.detach().clone() for k, v in aux.items()}
     aux["losses"] = torch.stack(losses)
-    return quads.detach(), Ts.detach(), aux
+    return quads.detach().clone(), Ts.detach().clone(), aux
 
 
 def _reduce_step(reduce, loss, aux, leaves):
@@ -424,13 +523,18 @@ def make_map_fn(spec: DecoderSpec, cfg: MapConfig, n_target: int, n_iters: int,
                 compute_dtype=torch.bfloat16):
     """The keystep for a window of ``n_target`` frames:
     ``fn(params, quads0, Ts0, window, gen, draws=None) -> (quads, Ts,
-    aux)``, updating ``params`` in place (``draws``: see ``map_step``)."""
+    aux)``, updating ``params`` in place (``draws``: see ``map_step``). It
+    keeps its own captured pieces (``fn.graphs``) where ``replays``."""
+    from dnsjax_torch.slam.map_graph import MapGraphs  # it builds on this module
+
     loss_fn = _build_loss_fn(spec, cfg, n_target, compute_dtype)
+    graphs = MapGraphs()
 
     def fn(params, quads0, Ts0, window, gen, draws=None):
-        return map_step(loss_fn, params, quads0, Ts0, window, gen, n_iters, draws=draws)
+        return map_step(loss_fn, params, quads0, Ts0, window, gen, n_iters, draws=draws,
+                        graphs=graphs)
 
-    fn.loss_fn = loss_fn
+    fn.loss_fn, fn.graphs = loss_fn, graphs
     return fn
 
 

@@ -8,8 +8,11 @@ the mapping calls, their iterations, TV terms and Adam updates; the grid
 encode and its backward, whose span carries the tag ``map.smooth`` when
 its forward ran inside that span).
 ``count(name, n=1)`` adds to a counter; the kernels' launch counts,
-``bootstrap.seconds``, ``map.smooth.points`` (the TV terms' points) and
-``pose.known`` (frames whose pose came from the dataset) live here. Inside
+``bootstrap.seconds``, ``map.smooth.points`` (the TV terms' points),
+``pose.known`` (frames whose pose came from the dataset), the tracker's
+``track.solves`` / ``track.graph.*`` and the keystep's ``map.iters`` (its
+mapping iterations), ``map.graph.captures`` and ``map.graph.replays`` (the
+iterations that replayed its captured pieces) live here. Inside
 ``tally()`` a thread's counts go to the block's own dict instead (a CUDA
 graph's capture records launches that only its replays make).
 

@@ -16,6 +16,17 @@ at the benchmark's 50 steps: the packed result equal bit for bit (the same
 kernels in the same order), the graph captured once and replayed for every
 frame after, and each replay counting the encode launches of one
 uncaptured solve.
+
+The keystep's replayed pieces (``slam/map_graph.py``) against the
+uncaptured loop, on ``tests/test_torch_keystep_graph.py``'s small keystep
+at the benchmark's 50 iterations a call: the map, the poses and the losses
+equal bit for bit, with the draws handed in and drawn from generators
+seeded alike, one capture and a replay an iteration; the table gradient
+kernel's float atomics add in an order that changes from launch to launch,
+so there both loops take the table gradient from the sorted scatter-add
+kernel, whose order is fixed. Under replay the encodes, their backwards,
+the TV term's span and the Adam step are each entered, and the kernels
+launched, as often as in the uncaptured loop.
 """
 
 import threading
@@ -26,6 +37,8 @@ import torch
 
 from dnsjax_torch import spans
 from dnsjax_torch.ops import encodings, gather, hashgrid, scatter
+from dnsjax_torch.models.decoder import param_leaves
+from dnsjax_torch.slam import mapper as tmap
 from dnsjax_torch.slam import tracker as ttrk
 
 pytestmark = pytest.mark.cuda
@@ -362,3 +375,84 @@ def test_tracker_graph_captures_the_plain_encode(dev, monkeypatch):
         assert _same(got, ref), (i, got, ref)
     c = spans.counters()
     assert c["track.graph.replays"] == 2 and not c.get("encode.launches")
+
+
+def _sorted_table_grad(spec, idx, w, g):
+    """The table gradient with its sums in a fixed order: the per-level
+    rows and values of ``table_grad_inputs`` (every row in range at
+    ``grad_levels: 0``) added by the sorted scatter-add kernel."""
+    rows, vals = scatter.table_grad_inputs(spec, idx, w, g)
+    L, R, F = spec.n_levels, spec.table_size, vals.shape[-1]
+    flat = rows.to(torch.int64) + torch.arange(L, device=rows.device)[:, None] * R
+    return scatter.sorted_scatter_add(flat.reshape(-1), vals.reshape(-1, F), L * R).reshape(
+        L, R, F)
+
+
+def test_keystep_graphs_replay_the_uncaptured_loop(dev, monkeypatch):
+    """Two 50-iteration calls on windows of different frames, the map
+    changed in place between them: the first with its draws handed in, the
+    second drawing from two generators seeded alike. The replayed calls'
+    map, poses, losses and last terms equal ``map_step``'s uncaptured
+    loop's bit for bit; one capture, 100 replayed iterations."""
+    from test_torch_keystep_graph import clone_params, problem, update_map
+
+    monkeypatch.setattr(scatter, "table_grad", _sorted_table_grad)
+    p = problem(dev, n_iters=50)
+    assert tmap.replays(p.loss_fn.cfg, dev)
+    spans.clear()
+    for k in (0, 1):
+        if k:
+            update_map(p.params, k)
+        w, (q0, t0) = p.window(k), p.poses(k)
+        eager = clone_params(p.params)
+        if k == 0:
+            draws = [p.loss_fn.draw(torch.Generator(dev).manual_seed(3), w, it)
+                     for it in range(50)]
+            ref = tmap.map_step(p.loss_fn, eager, q0, t0, w, None, 50, draws=draws)
+            got = p.fn(p.params, q0, t0, w, None, draws=draws)
+        else:
+            ref = tmap.map_step(p.loss_fn, eager, q0, t0, w,
+                                torch.Generator(dev).manual_seed(9), 50)
+            got = p.fn(p.params, q0, t0, w, torch.Generator(dev).manual_seed(9))
+        assert torch.isfinite(ref[2]["losses"]).all()
+        assert _same(got[0], ref[0]) and _same(got[1], ref[1]), k
+        assert not torch.equal(got[0], q0)  # the poses moved
+        for i, (a, b) in enumerate(zip(param_leaves(p.params), param_leaves(eager))):
+            assert _same(a, b), (k, i)
+        for name in ref[2]:
+            assert _same(got[2][name], ref[2][name]), (k, name)
+    c = spans.counters()
+    assert c["map.graph.captures"] == 1
+    assert c["map.graph.replays"] == 100 and c["map.iters"] == 200
+    assert c["sorted_scatter.launches"] == 2 * 200  # two table gradients an iteration
+
+
+def test_keystep_replays_enter_the_loop_s_spans(dev):
+    """A replayed call after its capture, traced: ``encode`` and
+    ``encode_bwd`` twice an iteration, one of each under the TV term
+    (``encode_bwd`` tagged ``map.smooth``), ``map.smooth``, ``map.adam``
+    and ``map.iter`` once; the encode and table gradient kernels launched
+    twice an iteration, as the uncaptured loop launches them."""
+    from test_torch_keystep_graph import problem
+
+    p = problem(dev, n_iters=50)
+    w, (q0, t0) = p.window(0), p.poses(0)
+    p.fn(p.params, q0, t0, w, torch.Generator(dev).manual_seed(1))  # captures
+    spans.clear()
+    spans.enable()
+    try:
+        p.fn(p.params, *p.poses(1), p.window(1), torch.Generator(dev).manual_seed(2))
+        torch.cuda.synchronize(dev)
+    finally:
+        spans.disable()
+    kept = spans.spans()
+    n = lambda name, **kw: sum(s.name == name and all(getattr(s, a) == v for a, v in kw.items())
+                               for s in kept)
+    assert n("map.iter") == n("map.smooth") == n("map.adam") == 50
+    assert n("encode") == n("encode_bwd") == 100
+    assert n("encode_bwd", tag="map.smooth") == 50
+    smooth = {s.id for s in kept if s.name == "map.smooth"}
+    assert sum(s.name == "encode" and s.parent in smooth for s in kept) == 50
+    c = spans.counters()
+    assert c["map.graph.replays"] == c["map.iters"] == 50 and not c.get("map.graph.captures")
+    assert c["encode.launches"] == c["table_grad.launches"] == 100
