@@ -25,7 +25,6 @@ on every iteration, unscaled (``smooth_every`` does not apply).
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
@@ -53,6 +52,8 @@ from dnsjax_torch.models.features import match_features, match_features_batched
 from dnsjax_torch.ops.oneblob import linspace01
 from dnsjax_torch.render.pipeline import normalize_pts, render_fine, render_fine_encoded
 from dnsjax_torch.render.sampling import draw_z_noise, sample_along_rays
+from dnsjax_torch.slam.graphs import capturable
+from dnsjax_torch.slam.map_graph import MapGraphs
 from dnsjax_torch.slam.sampling import (
     sample_class_balanced_pixels,
     sample_restricted_class_pixels,
@@ -399,17 +400,10 @@ def make_decoder_init_fn(spec: DecoderSpec, cfg: MapConfig, n_iters: int = 100,
 
 def replays(cfg: MapConfig, device, reduce=None) -> bool:
     """Does ``map_step`` replay the iteration's captured pieces
-    (``slam/map_graph.py``)? On a CUDA device, without a ``reduce`` (no ray
-    mesh), in the main thread on the default stream (not in the worker
-    thread and on the stream of an asynchronous or a composed keystep),
-    and with the TV term on every iteration, so that every iteration runs
-    the same program."""
-    from dnsjax_torch.ops import _cuda
-
-    return (torch.device(device).type == "cuda" and reduce is None
-            and cfg.smooth_every <= 1
-            and threading.current_thread() is threading.main_thread()
-            and not _cuda.on_side_stream(device))
+    (``slam/map_graph.py``)? Where ``capturable`` (``slam/graphs.py``),
+    without a ``reduce`` (no ray mesh) and with the TV term on every
+    iteration, so that every iteration runs the same program."""
+    return reduce is None and cfg.smooth_every <= 1 and capturable(device)
 
 
 def map_step(loss_fn: MapLoss, params, quads0, Ts0, window, gen: torch.Generator,
@@ -525,8 +519,6 @@ def make_map_fn(spec: DecoderSpec, cfg: MapConfig, n_target: int, n_iters: int,
     ``fn(params, quads0, Ts0, window, gen, draws=None) -> (quads, Ts,
     aux)``, updating ``params`` in place (``draws``: see ``map_step``). It
     keeps its own captured pieces (``fn.graphs``) where ``replays``."""
-    from dnsjax_torch.slam.map_graph import MapGraphs  # it builds on this module
-
     loss_fn = _build_loss_fn(spec, cfg, n_target, compute_dtype)
     graphs = MapGraphs()
 

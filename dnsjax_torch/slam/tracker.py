@@ -26,19 +26,17 @@ iterations it no longer needs with their launches. A tracked frame is bound
 by launches, not by the device, so the sync costs little. Without early exit
 the host reads one packed vector a frame.
 
-The Adam solve without early exit on a CUDA device and without a ray mesh
-(``Tracker.replays``) has fixed shapes and reads nothing on the host, so
+The Adam solve without early exit and without a ray mesh has fixed shapes
+and reads nothing on the host, so where it may capture (``Tracker.replays``)
 ``track`` captures it whole, draws and packing aside, as one CUDA graph
-(``solve_packed`` over static input buffers, after warm-up solves on the
-capture's stream) and replays that graph for every frame: each call copies
-its inputs into the buffers (the map's parameters that the forward reads,
-the frame, the initial pose and the 50 iterations' draws, drawn ahead from
-``gen`` in the order the loop draws them) and replays. The graph is captured
-again only when an input's shape or dtype changes. Its arithmetic is the
-uncaptured loop's: each step's learning rate and bias corrections are baked
-in as the loop computes them. A replay enters none of the loop's host spans
-(``track.iter``, ``encode``, ``encode_bwd``); it opens ``track.replay`` and
-adds the kernels' launch counts that one solve makes.
+(``slam/graphs.py``: ``solve_packed`` over static input buffers) and replays
+it for every frame after copying in the map's parameters that the forward
+reads, the frame, the initial pose and the 50 iterations' draws (drawn
+ahead from ``gen`` in the loop's order). It is captured again only when an
+input's shape or dtype changes. Each step's learning rate and bias
+corrections are baked in as the loop computes them. A replay enters none of
+the loop's host spans (``track.iter``, ``encode``, ``encode_bwd``); it opens
+``track.replay``.
 
 Under a ray mesh (``Tracker(mesh=)``, dnsjax's ``make_track_fn(mesh=)``)
 every rank draws its own rays from its own generator, and each iteration's
@@ -51,7 +49,7 @@ holds the same pose, and the early exit reads the averaged loss.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -63,6 +61,7 @@ from dnsjax_torch.losses.losses import depth_var_loss, photometric_loss, semanti
 from dnsjax_torch.models.features import match_features
 from dnsjax_torch.render.pipeline import render_coarse
 from dnsjax_torch.render.sampling import draw_z_noise, sample_along_rays
+from dnsjax_torch.slam import graphs
 from dnsjax_torch.slam.sampling import sample_uniform_pixels
 
 
@@ -101,48 +100,6 @@ class TrackConfig:
 
 # the map's parameters that ``Tracker.forward`` reads
 FORWARD_PARAMS = ("table", "coarse", "merge", "color", "logit")
-# uncaptured solves on the capture's stream before a capture
-GRAPH_WARMUPS = 2
-
-
-def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of nested dicts and lists, in order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [leaf for item in items for leaf in _leaves(item)]
-
-
-def clone_inputs(tree):
-    """A copy of ``solve_inputs``'s tree in new buffers, outside autograd."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().clone()
-    if isinstance(tree, dict):
-        return {k: clone_inputs(v) for k, v in tree.items()}
-    return [clone_inputs(v) for v in tree]
-
-
-@torch.no_grad()
-def fill_inputs(static, inputs) -> None:
-    """Copy ``inputs`` into the buffers of ``static`` (the same tree)."""
-    torch._foreach_copy_(_leaves(static), _leaves(inputs))
-
-
-def _count_launches(counts: Dict[str, float], side: bool) -> None:
-    """Add the kernels' ``*.launches`` of ``counts`` to the counters, and
-    to their ``*.side_launches`` where made on a side stream."""
-    for k, n in counts.items():
-        if k.endswith(".launches"):
-            spans.count(k, n)
-            spans.count(k[: -len("launches")] + "side_launches", n if side else 0)
-
-
-class _SolveGraph(NamedTuple):
-    key: tuple              # the inputs' shapes and dtypes, and the device
-    static: Dict[str, Any]  # the input buffers the graph reads
-    graph: Any              # torch.cuda.CUDAGraph
-    out: torch.Tensor       # the packed (10,) result a replay writes
-    launches: Dict[str, float]  # the kernels' ``*.launches`` counts of one solve
 
 
 class Tracker:
@@ -152,7 +109,7 @@ class Tracker:
         if cfg.method not in ("adam", "lm"):
             raise ValueError(f"tracking.method={cfg.method!r}: expected adam|lm")
         self.spec, self.cfg, self.dtype, self.mesh = spec, cfg, compute_dtype, mesh
-        self._graph = None  # the captured solve (_SolveGraph) once ``track`` replays
+        self._graph = None  # (key, the captured solve) once ``track`` replays
 
     def _pmean(self, *tensors):
         """The tensors averaged over the ray mesh (as they are without one)."""
@@ -368,13 +325,13 @@ class Tracker:
         return torch.cat([bq, bT, torch.stack([loss, p, d])]).to(torch.float32)
 
     def replays(self, device) -> bool:
-        """Does ``track`` replay a captured solve on ``device``? The Adam
-        solve without early exit on a CUDA device and without a ray mesh
-        does: its shapes and its iterations are fixed, and it reads nothing
-        on the host before its end."""
+        """Does ``track`` replay a captured solve on ``device``? Where
+        ``graphs.capturable``, the Adam solve without early exit and
+        without a ray mesh does: its shapes and its iterations are fixed,
+        and it reads nothing on the host before its end."""
         cfg = self.cfg
-        return (torch.device(device).type == "cuda" and cfg.method == "adam"
-                and cfg.patience <= 0 and self.mesh is None)
+        return (cfg.method == "adam" and cfg.patience <= 0 and self.mesh is None
+                and graphs.capturable(device))
 
     @staticmethod
     def solve_inputs(params, enc_feats, refer_w2c, color, depth, label, quad0, T0, bound,
@@ -397,51 +354,29 @@ class Tracker:
                                   lambda i: {k: v[i] for k, v in d.items()})
         return self._pack(best)
 
-    def _capture(self, inputs: Dict[str, Any], key: tuple) -> _SolveGraph:
-        """Warm up and capture ``solve_packed`` over new buffers holding
-        ``inputs``. The warm-ups' launches count as made on the caller's
-        stream; the capture's are held back for its replays to count."""
-        from dnsjax_torch.ops import _cuda
-
-        dev = inputs["quad0"].device
-        static = clone_inputs(inputs)
-        caller, caller_side = torch.cuda.current_stream(dev), _cuda.on_side_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(caller)
-        with spans.tally() as warm, torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUPS):
-                self.solve_packed(static)
-        caller.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread (an asynchronous keystep) may allocate meanwhile
-        with spans.tally() as held, torch.cuda.graph(graph, stream=side,
-                                                     capture_error_mode="thread_local"):
-            out = self.solve_packed(static)
-        for k, n in list(warm.items()) + list(held.items()):
-            if not k.endswith("launches"):  # neither *.launches nor *.side_launches
-                spans.count(k, n)
-        _count_launches(warm, caller_side)
-        spans.count("track.graph.captures")
-        launches = {k: n for k, n in held.items() if k.endswith(".launches")}
-        return _SolveGraph(key, static, graph, out, launches)
-
     def _replay(self, inputs: Dict[str, Any]) -> torch.Tensor:
         """The packed result of the captured solve on ``inputs`` (captured
-        first where no graph fits their shapes)."""
-        from dnsjax_torch.ops import _cuda
-
+        first, over new buffers, where no graph fits their shapes)."""
         dev = inputs["quad0"].device
-        key = (str(dev),) + tuple((tuple(x.shape), x.dtype) for x in _leaves(inputs))
-        if self._graph is None or self._graph.key != key:
+        given = graphs.leaves(inputs)
+        key = graphs.shapes_key(dev, given)
+        if self._graph is None or self._graph[0] != key:
             self._graph = None  # free the old graph's pool before the new capture
-            self._graph = self._capture(inputs, key)
-        g = self._graph
-        fill_inputs(g.static, inputs)
+            static = graphs.clone(inputs)
+            solve = graphs.Piece(lambda: (self.solve_packed(static),), graphs.leaves(static),
+                                 (False,), dev)
+            rec = graphs.Recorder(dev, shared_pool=False)
+            rec.warm_up(solve.fn)
+            rec.forward(solve)
+            rec.done()
+            spans.count("track.graph.captures")
+            self._graph = key, solve
+        solve = self._graph[1]
+        graphs.fill(solve.inputs, given)
         with spans.span("track.replay"):
-            g.graph.replay()
+            solve.replay("fwd")
         spans.count("track.graph.replays")
-        _count_launches(g.launches, _cuda.on_side_stream(dev))
-        return g.out.clone()  # the next replay overwrites g.out
+        return solve.outputs[0].clone()  # the next replay overwrites it
 
     def track(self, params, enc_feats, refer_w2c, color, depth, label, quad0, T0,
               bound, gen: torch.Generator, draws=None):

@@ -38,6 +38,7 @@ import torch
 from dnsjax_torch import spans
 from dnsjax_torch.ops import encodings, gather, hashgrid, scatter
 from dnsjax_torch.models.decoder import param_leaves
+from dnsjax_torch.slam import graphs
 from dnsjax_torch.slam import mapper as tmap
 from dnsjax_torch.slam import tracker as ttrk
 
@@ -323,7 +324,7 @@ def test_tracker_graph_replays_the_uncaptured_solve(dev):
     assert c["track.graph.captures"] == 1 and c["track.graph.replays"] == 4
     assert c["track.solves"] == 8
     n = per_solve[0][0]
-    assert n > 0 and per_solve[0][1] == (1 + ttrk.GRAPH_WARMUPS) * n
+    assert n > 0 and per_solve[0][1] == (1 + graphs.GRAPH_WARMUPS) * n
     assert all(a == b == n for a, b in per_solve[1:]), per_solve
     assert c.get("encode.side_launches", 0) == 0
 
@@ -393,7 +394,8 @@ def test_keystep_graphs_replay_the_uncaptured_loop(dev, monkeypatch):
     changed in place between them: the first with its draws handed in, the
     second drawing from two generators seeded alike. The replayed calls'
     map, poses, losses and last terms equal ``map_step``'s uncaptured
-    loop's bit for bit; one capture, 100 replayed iterations."""
+    loop's bit for bit; one capture, 100 replayed iterations, and no
+    encode launch counted on a side stream."""
     from test_torch_keystep_graph import clone_params, problem, update_map
 
     monkeypatch.setattr(scatter, "table_grad", _sorted_table_grad)
@@ -425,6 +427,7 @@ def test_keystep_graphs_replay_the_uncaptured_loop(dev, monkeypatch):
     assert c["map.graph.captures"] == 1
     assert c["map.graph.replays"] == 100 and c["map.iters"] == 200
     assert c["sorted_scatter.launches"] == 2 * 200  # two table gradients an iteration
+    assert c.get("encode.side_launches", 0) == 0
 
 
 def test_keystep_replays_enter_the_loop_s_spans(dev):

@@ -8,7 +8,7 @@ replays them there).
 - ``mapper.replays`` picks the uncaptured loop for the CPU, a ``reduce``
   (a ray mesh), an asynchronous keystep's worker, a composed keystep's, and
   ``smooth_every > 1``.
-- The pieces joined by ``_Replay`` over their buffers equal the unsplit
+- The pieces joined by ``graphs.Replay`` over their buffers equal the unsplit
   ``MapLoss`` in the loss, its seven terms and every gradient, and a whole
   call of ``map_step`` through them equals the uncaptured loop's, bit for
   bit, over two calls with different windows and an in-place update of
@@ -19,7 +19,6 @@ Imports no jax: ``problem`` also builds the card tests' keystep. Runtime
 budget: ~10 s on one core.
 """
 
-import contextlib
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -34,7 +33,7 @@ from dnsjax_torch.models.decoder import DecoderSpec, init_decoder_params, param_
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
 from dnsjax_torch.ops import _cuda
 from dnsjax_torch.ops.hashgrid import HashGridSpec
-from dnsjax_torch.slam import map_graph
+from dnsjax_torch.slam import graphs, map_graph
 from dnsjax_torch.slam import mapper as tmap
 from dnsjax_torch.slam.sampling import class_sorted_pixels
 
@@ -119,11 +118,12 @@ class TwinRecorder:
     the piece again, uncaptured, into its output buffers; a backward's runs
     it again and writes the gradients into its gradient buffers."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, shared_pool=False):
         pass
 
-    def warming(self):
-        return contextlib.nullcontext()
+    def warm_up(self, run):
+        for _ in range(graphs.GRAPH_WARMUPS):
+            run()
 
     def forward(self, piece):
         piece.outputs = tuple(o.detach().clone() for o in piece.fn())
@@ -161,7 +161,7 @@ class TwinRecorder:
 def replayed(monkeypatch):
     """``map_step`` takes the replayed path on the CPU, through the twin."""
     monkeypatch.setattr(tmap, "replays", lambda cfg, device, reduce=None: reduce is None)
-    monkeypatch.setattr(map_graph, "CudaRecorder", TwinRecorder)
+    monkeypatch.setattr(graphs, "Recorder", TwinRecorder)
 
 
 def test_draws_ahead_are_the_loop_s_draws(replayed):

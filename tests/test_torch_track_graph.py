@@ -5,7 +5,8 @@ captures and replays, run uncaptured here (a capture needs a card;
 - The 50 draws taken ahead are those the uncaptured loop takes from the
   same generator, in its order.
 - ``Tracker.replays`` picks the uncaptured loop for the CPU, the LM solve,
-  an early exit and a ray mesh.
+  an early exit, a ray mesh, another thread than the main one and a side
+  stream.
 - ``solve_packed`` over static buffers equals the uncaptured solve bit for
   bit, over two calls with different frames and an in-place update of the
   map between them, and the buffers hold copies, not the callers' tensors.
@@ -16,6 +17,7 @@ Imports no jax: ``problem`` also builds the card tests' tracker. Runtime
 budget: ~5 s on one core.
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -27,7 +29,9 @@ from dnsjax_torch.data.synthetic import SyntheticDataset
 from dnsjax_torch.geometry.se3 import tensor_from_camera_np
 from dnsjax_torch.models.decoder import DecoderSpec, init_decoder_params
 from dnsjax_torch.models.encoder import encode_images, init_encoder_params
+from dnsjax_torch.ops import _cuda
 from dnsjax_torch.ops.hashgrid import HashGridSpec
+from dnsjax_torch.slam import graphs
 from dnsjax_torch.slam import tracker as ttrk
 
 torch.set_num_threads(1)
@@ -106,30 +110,41 @@ def test_draws_ahead_are_the_loop_s_draws():
             assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("device,kw,mesh,replays", [
-    ("cuda", {}, None, True),
-    ("cpu", {}, None, False),
-    ("cuda", {"method": "lm"}, None, False),
-    ("cuda", {"patience": 10}, None, False),
-    ("cuda", {}, "mesh", False),
+def _in_worker(fn):
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="keystep") as pool:
+        return pool.submit(fn).result()
+
+
+@pytest.mark.parametrize("device,kw,mesh,where,side,replays", [
+    ("cuda", {}, None, "main", False, True),
+    ("cpu", {}, None, "main", False, False),
+    ("cuda", {"method": "lm"}, None, "main", False, False),
+    ("cuda", {"patience": 10}, None, "main", False, False),
+    ("cuda", {}, "mesh", "main", False, False),
+    ("cuda", {}, None, "worker", True, False),   # an asynchronous keystep's thread and stream
+    ("cuda", {}, None, "worker", False, False),  # another thread
+    ("cuda", {}, None, "main", True, False),     # on a side stream
 ])
-def test_only_the_adam_solve_without_early_exit_on_a_card_replays(device, kw, mesh, replays):
+def test_only_the_adam_solve_without_early_exit_on_a_card_replays(monkeypatch, device, kw, mesh,
+                                                                  where, side, replays):
+    monkeypatch.setattr(_cuda, "on_side_stream", lambda dev: side)
     spec = DecoderSpec(n_class=4, grid=HashGridSpec(**GRID))
     tr = ttrk.Tracker(spec, ttrk.TrackConfig(**CAM, **kw), torch.float32,
                       mesh=object() if mesh else None)
-    assert tr.replays(torch.device(device)) is replays
+    check = lambda: tr.replays(torch.device(device))
+    assert (check() if where == "main" else _in_worker(check)) is replays
 
 
 @pytest.mark.parametrize("interp", ["trilinear", "tet"])
 def test_static_solve_equals_the_loop_bit_for_bit(interp):
-    """``solve_packed`` on buffers filled by ``fill_inputs`` against the
+    """``solve_packed`` on buffers filled by ``graphs.fill`` against the
     uncaptured ``track`` on the callers' tensors and the same draws: frame
     2, then the map changed in place, then frame 3. Before the second fill
     the buffers still solve frame 2 on the old map."""
     p = problem("cpu", interp)
     tr, gen = p.tracker, torch.Generator().manual_seed(5)
     draws = tr.draw_ahead(gen, "cpu")
-    static = ttrk.clone_inputs(tr.solve_inputs(*p.args(2), draws))
+    static = graphs.clone(tr.solve_inputs(*p.args(2), draws))
     got = tr.solve_packed(static)
     ref, n_run = tr.track(*p.args(2), None, draws=draws)
     assert n_run == tr.cfg.n_iters and torch.equal(got, ref)
@@ -138,7 +153,7 @@ def test_static_solve_equals_the_loop_bit_for_bit(interp):
     update_map(p.params, 1)
     assert torch.equal(tr.solve_packed(static), got)  # copies, not references
     draws = tr.draw_ahead(gen, "cpu")
-    ttrk.fill_inputs(static, tr.solve_inputs(*p.args(3), draws))
+    graphs.fill(graphs.leaves(static), graphs.leaves(tr.solve_inputs(*p.args(3), draws)))
     got = tr.solve_packed(static)
     ref2, _ = tr.track(*p.args(3), None, draws=draws)
     assert torch.equal(got, ref2) and not torch.equal(ref2, ref)
