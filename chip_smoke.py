@@ -16,7 +16,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      levels, 2^16 rows, 2 features, trilinear, float32 rows, all 8 corners,
      ``scatter: xla``; the same two batches) and of the synthetic scene (8
      levels, 2^13 rows, 2 features, tet and trilinear): forward output and
-     residuals, position gradient and forward-mode tangent; the fused table
+     residuals; the position-gradient kernel against
+     ``position_grad_plain`` on the same residuals (one launch a call),
+     timed beside it and its bytes bound at the timed shapes (headline:
+     the parity mapping batch, 93,624 points); the forward-mode tangent's
+     plain rows on the kernel's residuals and the twin's; the fused table
      gradient against ``table_grad_plain`` in each case's mode and in the
      other value modes, one corner and all corners, and its values-as-given
      mode against ``scatter_add_plain``, timed at the textured, shard and
@@ -294,6 +298,14 @@ def _check_table_grad(name, spec, idx, w, g) -> float:
     return err
 
 
+def _pos_grad_bytes(spec, N: int) -> int:
+    """pts read and d_pts written, 12 B each; a (point, level)'s C corner
+    rows (4CF B), aux (12 B) and g (4F B) read: ``benchmark/counts.py``'s
+    position part of the encode's backward."""
+    L, C, F = spec.n_levels, spec.n_corners, spec.n_features
+    return N * (24 + 4 * L * (C * F + 3 + F))
+
+
 def _table_grad_bytes(spec, N: int) -> int:
     """idx and w 4 B a corner, g 4F B a (point, level), the table once. In
     the level-draw mode a point needs only the two ids of the draw and its
@@ -431,6 +443,7 @@ def check_kernels(results, plain_shapes):
     the encode's calls without residuals on the output paths."""
     import torch
 
+    from dnsjax_torch import spans
     from dnsjax_torch.ops import gather, hashgrid, scatter
 
     dev = torch.device("cuda")
@@ -461,6 +474,7 @@ def check_kernels(results, plain_shapes):
     ]
     fwd = results["hash_encode_fwd"]
     sca = results["scatter_add"]
+    pos = results["position_grad"]
     textured_grad = None
     for name, kw, N, timed, variants in cases:
         spec = hashgrid.HashGridSpec(**kw)
@@ -484,8 +498,13 @@ def check_kernels(results, plain_shapes):
         out, feats, idx, w, aux = got
         g = torch.randn(out.shape, generator=gen, device=dev)
         gl = g.reshape(N, L, F)
-        d_pts = hashgrid._position_grad(spec, pts, feats, aux, gl)
-        d_pts_ref = hashgrid._position_grad(spec, pts, ref[1], ref[4], gl)
+        # the position-gradient kernel against its plain twin on the same
+        # residuals, one launch a call
+        n_pos = spans.counters().get("pos_grad.launches", 0)
+        d_pts = hashgrid.position_grad(spec, pts, feats, aux, gl)
+        if spans.counters().get("pos_grad.launches", 0) != n_pos + 1:
+            raise AssertionError(f"{name}: position_grad did not launch its kernel once")
+        d_pts_ref = hashgrid.position_grad_plain(spec, pts, feats, aux, gl)
         e_pos = _max_err(d_pts, d_pts_ref)
         dfrac = hashgrid._position_dfrac(spec, feats, aux)
         dfrac_ref = hashgrid._position_dfrac(spec, ref[1], ref[4])
@@ -502,7 +521,12 @@ def check_kernels(results, plain_shapes):
         print("kernel check " + json.dumps(line), flush=True)
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["out"], errs["w"])
         sca["max_abs_err"] = max(sca["max_abs_err"], e_tab)
+        pos["max_abs_err"] = max(pos["max_abs_err"], e_pos)
         if timed:
+            pos["shapes"].append(_timed_row(
+                f"{name} N={N} position gradient", _pos_grad_bytes(spec, N),
+                lambda: hashgrid.position_grad(spec, pts, feats, aux, gl),
+                lambda: hashgrid.position_grad_plain(spec, pts, feats, aux, gl)))
             fwd["shapes"].append(_timed_row(
                 f"{name} N={N}", _encode_bytes(spec, N, True, ref[2]),
                 lambda: gather.encode_forward(pts, table, spec, True),
@@ -536,6 +560,8 @@ def check_kernels(results, plain_shapes):
     sca["shapes"].append(_time_table_grad("textured-map rays", spec, idx, w, gl))
     _headline(fwd, fwd["shapes"][0])
     _headline(sca, sca["shapes"][0])
+    # the cells' point: 16 x 2 trilinear at the keystep's 93,624 points
+    _headline(pos, next(r for r in pos["shapes"] if r["shape"].startswith("parity-map ")))
 
     # the output paths' encode without residuals, at their chunk sizes
     spec = hashgrid.HashGridSpec(**TEXTURED)
@@ -719,7 +745,8 @@ def _counts():
     c = spans.counters()
     return {"hash_encode_fwd": c.get("encode.launches", 0),
             "scatter_add": c.get("table_grad.launches", 0),
-            "sorted_scatter_add": c.get("sorted_scatter.launches", 0)}
+            "sorted_scatter_add": c.get("sorted_scatter.launches", 0),
+            "position_grad": c.get("pos_grad.launches", 0)}
 
 
 # scripts/ab_quality.py's "parity" variant: the reference's grid, float32
@@ -1783,7 +1810,8 @@ def run_scannet_keystep():
     dev_ms = sum(dev_us(e) for e in events) / 1e3
     ours = {k: [sum(dev_us(e) for e in events if k in e.key) / 1e3,
                 sum(e.count for e in events if k in e.key)]
-            for k in ("hash_encode_fwd_kernel", "table_grad_kernel")}
+            for k in ("hash_encode_fwd_kernel", "table_grad_kernel",
+                      "hash_encode_pos_grad_kernel")}
     g = spec.grid
     line = dict(table=f"L={g.n_levels} T=2^{g.log2_hashmap_size} F={g.n_features} "
                       f"{g.interp} {g.scatter}", n_class=C, window=T, iters=n_iters,
@@ -1840,6 +1868,8 @@ def main(argv=None):
         # on no path of the system (dnsjax calls it only from its tests)
         ("sorted_scatter_add", "dnsjax_torch/csrc/sorted_scatter.cu",
          "dnsjax/ops/scatter.py:65"),
+        # no TPU kernel: dnsjax computes the encode's position gradient in XLA
+        ("position_grad", "dnsjax_torch/csrc/hashgrid.cu", "dnsjax/ops/hashgrid.py:318"),
     )
     results = {name: dict(name=name, route="cuda", source=source, replaces=replaces,
                           launches=0, max_abs_err=0.0, ms=None, call_ms=None, plain_ms=None,

@@ -275,3 +275,160 @@ extern "C" int dnsjax_hash_encode_fwd(const void* pts, const void* table,
   }
   return (int)cudaGetLastError();
 }
+
+// Position gradient of the encode: d(out)/d(pts)^T g -> (N, 3).
+//
+// Replaces no TPU kernel: dnsjax computes it in XLA
+// (dnsjax/ops/hashgrid.py:318 _position_grad), and the port ran it as a
+// chain of plain torch ops (``ops/hashgrid.py:position_grad_plain``) that
+// wrote several (N, L, 8, 3) float32 tensors and ran two batched matrix
+// products over N * L tiny batches. Here one launch reads the residuals the
+// forward saved and writes the (N, 3) gradient alone.
+//
+// What bounds it on the H100: bytes. A point reads pts (12 B), its L
+// levels' corner rows (C * F * 4 B each), aux (12 B each) and g (F * 4 B
+// each), and writes 12 B: 1,368 B at L = 16, C = 8, F = 2, or 38.2 us for
+// the keystep's 93,624 points at 3.35 TB/s. The arithmetic is a few flops
+// a loaded float.
+//
+// Layout: one lane per (point, level), LP = L rounded up to a power of two
+// lanes a point (LP <= 32, so a point's lanes share a warp; the lanes of
+// levels >= L add 0). Consecutive lanes read consecutive levels' rows, so a
+// point's rows (1 KB at the cells' shape) are read as one coalesced run of
+// 16-byte loads. A lane forms s_c = sum_f feats[c, f] * g[f] over its
+// corners, then d frac_k: for trilinear the differences of s along axis k
+// weighted by the other two axes' factors (frac or 1 - frac, the lower
+// axis first, as the plain version's products), for tet s[rank_k + 1] -
+// s[rank_k]; times the level's resolution (the float (L,) tensor the plain
+// version multiplies by). The point's lanes sum the three values by a
+// butterfly of __shfl_xor_sync, whose order is fixed, so the result is the
+// same on every launch (no atomics, no scratch); the level-0 lane zeroes
+// each axis on which the point lies outside [0, 1] and stores 12 B.
+template <int C, int F>
+__global__ void hash_encode_pos_grad_kernel(
+    const float* __restrict__ pts, const float* __restrict__ feats,
+    const void* __restrict__ aux, const float* __restrict__ g,
+    const float* __restrict__ res, float* __restrict__ out, int N, int L, int lp_log2) {
+  static_assert(C * F % 4 == 0, "a corner row block is whole float4s");
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = (int)(t >> lp_log2);
+  const int l = (int)(t & ((1 << lp_log2) - 1));
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (n < N && l < L) {
+    const int nl = n * L + l;
+    float gv[F];
+    if constexpr (F % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) {
+        float4 x = __ldg(reinterpret_cast<const float4*>(g + nl * F) + q);
+        gv[4 * q] = x.x;
+        gv[4 * q + 1] = x.y;
+        gv[4 * q + 2] = x.z;
+        gv[4 * q + 3] = x.w;
+      }
+    } else if constexpr (F == 2) {
+      float2 x = __ldg(reinterpret_cast<const float2*>(g + nl * F));
+      gv[0] = x.x;
+      gv[1] = x.y;
+    } else {
+      gv[0] = __ldg(g + nl);
+    }
+    // s_c = sum_f feats[c, f] * g[f], the row read as C * F / 4 float4s
+    float s[C];
+    const float4* row = reinterpret_cast<const float4*>(feats + (long long)nl * C * F);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < C * F / 4; ++q) {
+      const float4 x = __ldcs(row + q);
+      const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = 4 * q + j;
+        s[e / F] = s[e / F] + v[j] * gv[e % F];
+      }
+    }
+    if constexpr (C == 8) {
+      const float* fr = reinterpret_cast<const float*>(aux) + nl * 3;
+      float f1[3], f0[3];  // each axis' factor where a corner's bit is 1 / 0
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        f1[k] = __ldcs(fr + k);
+        f0[k] = 1.0f - f1[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int i = k == 0 ? 1 : 0;  // the other two axes, i < j
+        const int j = k == 2 ? 1 : 2;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if ((c >> k) & 1) continue;  // c: the corner of the pair with bit k = 0
+          const float wi = ((c >> i) & 1) ? f1[i] : f0[i];
+          const float wj = ((c >> j) & 1) ? f1[j] : f0[j];
+          d[k] = d[k] + (wi * wj) * (s[c | (1 << k)] - s[c]);
+        }
+      }
+    } else {
+      const int* rk = reinterpret_cast<const int*>(aux) + nl * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int r = __ldcs(rk + k);  // 0, 1 or 2
+        const float lo = r == 0 ? s[0] : r == 1 ? s[1] : s[2];
+        const float hi = r == 0 ? s[1] : r == 1 ? s[2] : s[3];
+        d[k] = hi - lo;
+      }
+    }
+    const float rl = __ldg(res + l);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) d[k] = d[k] * rl;
+  }
+  // every lane of the warp takes part (those past the end add 0)
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    for (int off = (1 << lp_log2) >> 1; off > 0; off >>= 1)
+      d[k] = d[k] + __shfl_xor_sync(FULL_MASK, d[k], off);
+  if (n < N && l == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float p = __ldg(pts + 3 * n + k);
+      out[3 * n + k] = (p >= 0.0f && p <= 1.0f) ? d[k] : 0.0f;
+    }
+  }
+}
+
+extern "C" int dnsjax_hash_encode_pos_grad(const void* pts, const void* feats,
+                                           const void* aux, const void* g, const void* res,
+                                           void* out, int N, int L, int F, int tet,
+                                           void* stream) {
+  if (N < 0 || L < 1 || L > 32 || (F != 1 && F != 2 && F != 4 && F != 8))
+    return (int)cudaErrorInvalidValue;
+  const int C = tet ? 4 : 8;
+  int lp_log2 = 0;
+  while ((1 << lp_log2) < L) ++lp_log2;
+  const long long total = (long long)N << lp_log2;
+  if ((long long)N * L * C * F >= (1LL << 31) || total >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (total > 0) {
+    const unsigned int blocks = dnsjax_blocks(total);
+    cudaStream_t st = (cudaStream_t)stream;
+#define DNSJAX_POS(CV, FV)                                                          \
+  hash_encode_pos_grad_kernel<CV, FV><<<blocks, DNSJAX_THREADS, 0, st>>>(          \
+      (const float*)pts, (const float*)feats, aux, (const float*)g, (const float*)res, \
+      (float*)out, N, L, lp_log2)
+#define DNSJAX_POS_F(CV)          \
+  switch (F) {                    \
+    case 1: DNSJAX_POS(CV, 1); break; \
+    case 2: DNSJAX_POS(CV, 2); break; \
+    case 4: DNSJAX_POS(CV, 4); break; \
+    default: DNSJAX_POS(CV, 8); break; \
+  }
+    if (tet) {
+      DNSJAX_POS_F(4)
+    } else {
+      DNSJAX_POS_F(8)
+    }
+#undef DNSJAX_POS_F
+#undef DNSJAX_POS
+  }
+  return (int)cudaGetLastError();
+}

@@ -43,6 +43,8 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pts, table, res, out, feats, idx, w, aux, N, L, T, F, tet, bf16, stream
     "dnsjax_hash_encode_fwd": (_VP,) * 8 + (_I,) * 6 + (_VP,),
+    # pts, feats, aux, g, res (float, device), out, N, L, F, tet, stream
+    "dnsjax_hash_encode_pos_grad": (_VP,) * 6 + (_I,) * 4 + (_VP,),
     # idx, w, g, out, N, L, T, F, C, corners, rounding, level draw, stream
     "dnsjax_table_grad": (_VP,) * 4 + (_I,) * 8 + (_VP,),
     # sorted idx, sorted vals, out, scratch, M, R, F, V, stream

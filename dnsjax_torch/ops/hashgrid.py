@@ -7,12 +7,12 @@ identically in the other. ``hash_encode`` is one ``torch.autograd.Function``
 with a backward (table and position gradients) and a ``jvp`` (forward-mode
 tangent, used by the Levenberg-Marquardt tracker under ``torch.func``).
 
-Its two heavy pieces are CUDA kernels with plain-torch twins
+Its three heavy pieces are CUDA kernels with plain-torch twins
 (``ops/gather.py``: the forward; ``ops/scatter.py:table_grad``: the table
-gradient, corner draw, value rounding and scatter in one kernel). On CPU
-tensors the twins run; on CUDA tensors the kernels.
-The position gradient and the tangent stay plain torch on the per-corner
-rows the forward kernel saves.
+gradient, corner draw, value rounding and scatter in one kernel;
+``position_grad``: the position gradient from the per-corner rows the
+forward kernel saves). On CPU tensors the twins run; on CUDA tensors the
+kernels. The tangent stays plain torch on the same rows.
 """
 
 from __future__ import annotations
@@ -267,12 +267,74 @@ def _inside(pts: torch.Tensor) -> torch.Tensor:
     return (pts >= 0) & (pts <= 1)
 
 
-def _position_grad(spec: HashGridSpec, pts, feats, aux, g):
+def position_grad_plain(spec: HashGridSpec, pts, feats, aux, g):
     """d(encode)/d(pts) transpose: (N, 3), plain torch on the saved rows."""
     dfrac = torch.einsum("nlkf,nlf->nlk", _position_dfrac(spec, feats, aux), g)
     res = _resolutions(spec, dfrac.dtype, dfrac.device)
     d_p = (dfrac * res[None, :, None]).sum(1)
     return torch.where(_inside(pts), d_p, torch.zeros_like(d_p))
+
+
+_POS_GRAD_FEATURES = (1, 2, 4, 8)  # the kernel's compile-time feature counts
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address (the kernels' vector loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def position_grad(spec: HashGridSpec, pts, feats, aux, g) -> torch.Tensor:
+    """(N, 3) position gradient of ``hash_encode``; the same function as
+    ``position_grad_plain`` up to the order of the float32 sums.
+
+    pts (N, 3) float32, feats (N, L, C, F) float32 and aux (N, L, 3) (int32
+    tet rank or float32 trilinear frac): the forward's residuals; g (N, L, F)
+    float32 cotangent. CPU tensors take the plain twin. CUDA tensors launch
+    ``dnsjax_hash_encode_pos_grad`` (csrc/hashgrid.cu) once, with no host
+    read, so it records into a CUDA graph's capture, and never fall back.
+    """
+    if all(t.device.type == "cpu" for t in (pts, feats, aux, g)):
+        return position_grad_plain(spec, pts, feats, aux, g)
+    from dnsjax_torch.ops import _cuda
+
+    dev = pts.device
+    if dev.type != "cuda" or any(t.device != dev for t in (feats, aux, g)):
+        raise ValueError(f"position_grad: pts on {dev}, feats on {feats.device}, "
+                         f"aux on {aux.device}, g on {g.device}")
+    L, C, F = spec.n_levels, spec.n_corners, spec.n_features
+    aux_dtype = torch.int32 if spec.interp == "tet" else torch.float32
+    if (pts.dtype != torch.float32 or feats.dtype != torch.float32
+            or g.dtype != torch.float32 or aux.dtype != aux_dtype):
+        raise TypeError(f"position_grad: pts, feats and g must be float32, aux {aux_dtype}")
+    N = pts.shape[0]
+    if (tuple(pts.shape) != (N, 3) or tuple(feats.shape) != (N, L, C, F)
+            or tuple(aux.shape) != (N, L, 3) or tuple(g.shape) != (N, L, F)):
+        raise ValueError(
+            f"position_grad: pts {tuple(pts.shape)}, feats {tuple(feats.shape)}, "
+            f"aux {tuple(aux.shape)}, g {tuple(g.shape)}, expected (N, 3), "
+            f"(N, {L}, {C}, {F}), (N, {L}, 3) and (N, {L}, {F})")
+    if F not in _POS_GRAD_FEATURES or L > 32:
+        raise ValueError(f"position_grad: {L} levels of {F} features, the kernel takes "
+                         f"at most 32 levels of {_POS_GRAD_FEATURES} features")
+    if N * L * C * F >= 2**31:
+        raise ValueError("position_grad: N*L*C*F must fit int32 indices")
+    out = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    # named, so that a copy lives until the launch has read its address
+    pts, feats, aux, g = pts.contiguous(), _aligned(feats), aux.contiguous(), _aligned(g)
+    err = _cuda.library().dnsjax_hash_encode_pos_grad(
+        pts.data_ptr(), feats.data_ptr(), aux.data_ptr(), g.data_ptr(),
+        _resolutions(spec, torch.float32, dev).data_ptr(), out.data_ptr(), N, L, F,
+        int(spec.interp == "tet"), _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "dnsjax_hash_encode_pos_grad")
+    # launches of the kernel (the plain twin does not count), and of those
+    # the launches on another stream than the default
+    spans.count("pos_grad.launches")
+    spans.count("pos_grad.side_launches", _cuda.on_side_stream(dev))
+    return out
 
 
 class _HashEncode(torch.autograd.Function):
@@ -312,7 +374,8 @@ class _HashEncode(torch.autograd.Function):
 
                 d_table = table_grad(spec, idx, w, g)
             if ctx.needs_input_grad[1]:
-                d_pts = _position_grad(spec, pts, feats, aux, g)
+                with spans.span("encode_bwd.pos"):
+                    d_pts = position_grad(spec, pts, feats, aux, g)
         return d_table, d_pts, None, None
 
     @staticmethod

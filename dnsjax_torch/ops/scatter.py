@@ -42,7 +42,7 @@ import functools
 import torch
 
 from dnsjax_torch import spans
-from dnsjax_torch.ops.hashgrid import _level_draw, _table_grad_contribs
+from dnsjax_torch.ops.hashgrid import _aligned, _level_draw, _table_grad_contribs
 
 _U32 = 0xFFFFFFFF
 # dnsjax_table_grad's modes: corners (one sampled, all, values as given) and
@@ -139,12 +139,6 @@ def table_grad_plain(spec, idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor) 
     """Plain-torch (L, T, F) table gradient: ``table_grad_inputs`` then
     ``scatter_add_plain``."""
     return scatter_add_plain(*table_grad_inputs(spec, idx, w, g), spec.table_size)
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x contiguous at a 16-byte aligned address (the kernel's vector loads)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(idx, w, g, out, N, L, T, F, C, corners, rounding, level=False) -> None:

@@ -12,7 +12,9 @@ summed over the group like the forward.
 
 dnsjax's TP encode reaches no Pallas kernel (``jnp.take`` and
 ``.at[].add``), so this one is plain torch too: no value rounding and no
-level draw of ``model.grid.scatter`` / ``grad_levels``, as in dnsjax.
+level draw of ``model.grid.scatter`` / ``grad_levels``, as in dnsjax. Only
+the position gradient goes through the encode's own wrapper
+(``hashgrid.position_grad``: its kernel on a card).
 
 ``hash_encode_tp`` is one ``torch.autograd.Function`` whose backward does
 the collectives itself. ``torch.distributed.nn.functional.all_reduce`` is
@@ -38,12 +40,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from dnsjax_torch.ops.hashgrid import (
-    HashGridSpec,
-    _corner_indices_weights,
-    _position_grad,
-    _table_grad_contribs,
-)
+from dnsjax_torch.ops import hashgrid
+from dnsjax_torch.ops.hashgrid import HashGridSpec, _corner_indices_weights, _table_grad_contribs
 from dnsjax_torch.parallel.mesh import RayMesh
 
 
@@ -136,7 +134,7 @@ class _HashEncodeTP(torch.autograd.Function):
             d_table = torch.zeros((L * Tl, F), dtype=torch.float32, device=g.device).index_add_(
                 0, local.reshape(-1), contrib.reshape(-1, F)).reshape(L, Tl, F)
         if ctx.needs_input_grad[1]:
-            d_pts = tp.all_reduce_(_position_grad(spec, pts, feats, aux, g))
+            d_pts = tp.all_reduce_(hashgrid.position_grad(spec, pts, feats, aux, g))
         return d_table, d_pts, None, None
 
 

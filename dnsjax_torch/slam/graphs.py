@@ -10,8 +10,10 @@ pieces' backward) on that stream; each call then fills the buffers
 uncaptured, so a replay equals the uncaptured run bit for bit.
 
 Launch counts: the warm-ups' launches count as made on the caller's
-stream; a capture's ``*.launches`` are held back (``spans.tally``) and each
-replay adds them, its ``*.side_launches`` by the stream it replays on.
+stream; a capture's ``*.launches`` are held back (``spans.tally`` of the
+capture's stream, so that those of a backward, which autograd launches from
+a thread of its own, are held too) and each replay adds them, its
+``*.side_launches`` by the stream it replays on.
 Other counters a capture makes count once.
 
 Memory pools: the keystep's captures share one pool a device, as their
@@ -158,7 +160,7 @@ class Recorder:
 
     def warm_up(self, run) -> None:
         """``run()`` ``GRAPH_WARMUPS`` times, uncaptured, on the stream."""
-        with spans.tally() as warm, torch.cuda.stream(self.stream):
+        with spans.tally(self.stream) as warm, torch.cuda.stream(self.stream):
             for _ in range(GRAPH_WARMUPS):
                 run()
         _count(warm, self.caller_side)
@@ -166,8 +168,8 @@ class Recorder:
     def _capture(self, fn):
         """(graph, held ``*.launches``, ``fn()``'s outputs) of ``fn``."""
         graph = torch.cuda.CUDAGraph()
-        with spans.tally() as held, torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                                     capture_error_mode="thread_local"):
+        with spans.tally(self.stream) as held, torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
             out = fn()
         _count({k: n for k, n in held.items() if not k.endswith(".launches")}, False)
         return graph, {k: n for k, n in held.items() if k.endswith(".launches")}, out

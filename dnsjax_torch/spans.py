@@ -6,7 +6,8 @@ work happens (the driver's frame, load, upload, track, keystep, keyframe,
 checkpoint and log; the tracker's encode, solve, iterations and readback;
 the mapping calls, their iterations, TV terms and Adam updates; the grid
 encode and its backward, whose span carries the tag ``map.smooth`` when
-its forward ran inside that span).
+its forward ran inside that span, and holds ``encode_bwd.pos`` where it
+takes a point gradient).
 ``count(name, n=1)`` adds to a counter; the kernels' launch counts,
 ``bootstrap.seconds``, ``map.smooth.points`` (the TV terms' points),
 ``pose.known`` (frames whose pose came from the dataset), the tracker's
@@ -14,7 +15,9 @@ its forward ran inside that span).
 mapping iterations), ``map.graph.captures`` and ``map.graph.replays`` (the
 iterations that replayed its captured pieces) live here. Inside
 ``tally()`` a thread's counts go to the block's own dict instead (a CUDA
-graph's capture records launches that only its replays make).
+graph's capture records launches that only its replays make), and inside
+``tally(stream)`` also those any thread makes on that stream (a captured
+backward's, which autograd launches from a thread of its own).
 
 Off, the default, a span is one shared null context: it reads no clock
 and keeps nothing. Tracing is on after ``enable()`` (until ``disable()``),
@@ -47,6 +50,7 @@ _profiling = torch._C._autograd._profiler_enabled
 _on = False
 _spans: List["Span"] = []
 _counters: Dict[str, float] = {}
+_stream_tallies: Dict[int, Dict[str, float]] = {}  # a CUDA stream's id: its tally's dict
 _lock = threading.Lock()
 _ids = itertools.count()
 _local = threading.local()
@@ -118,27 +122,42 @@ def within(name: str) -> bool:
     return any(s.name == name for s in getattr(_local, "stack", ()))
 
 
+def _stream_key() -> int:
+    """The id of the CUDA stream this thread launches on."""
+    return torch.cuda.current_stream().cuda_stream
+
+
 def count(name: str, n: float = 1) -> None:
     """Add ``n`` to the counter ``name`` (from any thread), or to the
-    thread's innermost ``tally``."""
+    thread's innermost ``tally``, or to the ``tally`` of the CUDA stream the
+    thread launches on."""
     held = getattr(_local, "tally", None)
-    if held is not None:
-        held[name] = held.get(name, 0) + n
-        return
+    if held is None and _stream_tallies:
+        held = _stream_tallies.get(_stream_key())
     with _lock:
-        _counters[name] = _counters.get(name, 0) + n
+        into = _counters if held is None else held
+        into[name] = into.get(name, 0) + n
 
 
 @contextlib.contextmanager
-def tally():
+def tally(stream=None):
     """Hold back the counts this thread makes inside the block: they add to
-    the yielded dict, not to the counters."""
+    the yielded dict, not to the counters. Given a CUDA ``stream``, so do the
+    counts any other thread makes on that stream meanwhile: autograd runs a
+    CUDA backward in a thread of its own, on the stream of its forward."""
     outer = getattr(_local, "tally", None)
     _local.tally = held = {}
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _lock:
+            _stream_tallies[key] = held
     try:
         yield held
     finally:
         _local.tally = outer
+        if key is not None:
+            with _lock:
+                del _stream_tallies[key]
 
 
 def spans() -> List[Span]:

@@ -14,8 +14,8 @@ The Adam tracker's captured solve (``slam/tracker.py``) against the same
 solve uncaptured, on ``tests/test_torch_track_graph.py``'s small problem
 at the benchmark's 50 steps: the packed result equal bit for bit (the same
 kernels in the same order), the graph captured once and replayed for every
-frame after, and each replay counting the encode launches of one
-uncaptured solve.
+frame after, and each replay counting the encode and position-gradient
+launches of one uncaptured solve.
 
 The keystep's replayed pieces (``slam/map_graph.py``) against the
 uncaptured loop, on ``tests/test_torch_keystep_graph.py``'s small keystep
@@ -27,6 +27,11 @@ so there both loops take the table gradient from the sorted scatter-add
 kernel, whose order is fixed. Under replay the encodes, their backwards,
 the TV term's span and the Adam step are each entered, and the kernels
 launched, as often as in the uncaptured loop.
+
+The encode's position-gradient kernel against ``position_grad_plain`` at
+the keystep's and the tracker's shapes and the textured tet point, within
+1e-5 of the largest entry (the sums' order over corners, features and
+levels), bit for bit between two launches and under graph replay.
 """
 
 import threading
@@ -240,6 +245,90 @@ def test_sorted_segment_sum_tiles(dev, case, F):
     assert torch.equal(got, again)
 
 
+# the encode's position gradient: the cells' point (16 x 2 float32
+# trilinear, 2^16 rows) at the keystep's 4 x 498 rays x 47 samples and the
+# tracker's 500 x 47, and the textured point (4 x 8 tet, bf16 rows)
+_POS_GRAD_CASES = {
+    "keystep": (dict(n_levels=16, n_features=2, log2_hashmap_size=16, base_resolution=16,
+                     desired_resolution=224, gather_bf16=False), "trilinear", 93_624),
+    "tracker": (dict(n_levels=16, n_features=2, log2_hashmap_size=16, base_resolution=16,
+                     desired_resolution=224, gather_bf16=False), "trilinear", 23_500),
+    "textured": (dict(n_levels=4, n_features=8, log2_hashmap_size=16, base_resolution=16,
+                      desired_resolution=224, gather_bf16=True), "tet", 93_624),
+}
+
+
+def _pos_grad_inputs(dev, case, seed=7):
+    """The case's spec, points (uniform in [-0.05, 1.05]^3, so some lie
+    outside on an axis, and 3 x 64 exactly on the faces 0 and 1), the
+    forward kernel's residuals and a normal cotangent."""
+    kw, interp, N = _POS_GRAD_CASES[case]
+    spec = hashgrid.HashGridSpec(interp=interp, **kw)
+    L, T, F = spec.n_levels, spec.table_size, spec.n_features
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.rand((L, T, F), generator=g, device=dev) * 2 - 1
+    pts = torch.rand((N, 3), generator=g, device=dev) * 1.1 - 0.05
+    for k in range(3):
+        pts[64 * k: 64 * (k + 1), k] = float(k % 2)
+    pts[200] = 1.0
+    _, feats, _, _, aux = gather.encode_forward(pts, table, spec, True)
+    cot = torch.randn((N, L, F), generator=g, device=dev)
+    return spec, table, pts, feats, aux, cot
+
+
+def _pos_grad_atol(ref) -> float:
+    """The kernel sums the corners, features and levels in another order
+    than the plain chain (differences of s first, a butterfly over the
+    levels): ~n * eps of the terms' magnitudes, the largest of which the
+    largest entry bounds well within 1e-5 of it (the phase-2 check allows
+    1e-4)."""
+    return 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("case", list(_POS_GRAD_CASES))
+def test_position_grad_kernel_matches_plain(dev, case):
+    """``position_grad`` against ``position_grad_plain`` on the same
+    residuals, one launch a call; zero on every axis a point lies outside
+    [0, 1] on; two launches equal bit for bit (no atomics); a backward
+    through hash_encode launches it once and gives its result bit for bit."""
+    spec, table, pts, feats, aux, cot = _pos_grad_inputs(dev, case)
+    before = spans.counters().get("pos_grad.launches", 0)
+    got = hashgrid.position_grad(spec, pts, feats, aux, cot)
+    assert spans.counters().get("pos_grad.launches", 0) == before + 1
+    ref = hashgrid.position_grad_plain(spec, pts, feats, aux, cot)
+    assert got.shape == ref.shape == (pts.shape[0], 3) and got.dtype == torch.float32
+    assert torch.isfinite(ref).all() and float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=_pos_grad_atol(ref))
+    outside = (pts < 0) | (pts > 1)
+    assert bool(outside.any()) and bool((got[outside] == 0).all())
+    assert torch.equal(hashgrid.position_grad(spec, pts, feats, aux, cot), got)
+    p = pts.clone().requires_grad_(True)
+    before = spans.counters().get("pos_grad.launches", 0)
+    (hashgrid.hash_encode(table, p, spec) * cot.reshape(pts.shape[0], -1)).sum().backward()
+    assert spans.counters().get("pos_grad.launches", 0) == before + 1
+    assert torch.equal(p.grad, got)
+
+
+def test_position_grad_kernel_replays_in_a_graph(dev):
+    """Captured in a CUDA graph (no host read, no sync) and replayed on new
+    inputs filled in place, the kernel's result equals the eager call's
+    bit for bit."""
+    spec, _, pts, feats, aux, cot = _pos_grad_inputs(dev, "tracker")
+    static = [t.clone() for t in (pts, feats, aux, cot)]
+    hashgrid.position_grad(spec, *static)  # the resolutions' constant, made outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = hashgrid.position_grad(spec, *static)
+    for seed in (8, 9):
+        _, _, *fresh = _pos_grad_inputs(dev, "tracker", seed)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, hashgrid.position_grad(spec, *fresh)), seed
+
+
 def test_wrappers_reject_bad_inputs(dev):
     spec = _spec("tet", 8)
     table = torch.zeros((3, 4096, 8), device=dev)
@@ -273,6 +362,19 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         gather.encode_forward(torch.zeros((4, 3), device=dev),
                               torch.zeros((3, 3000, 8), device=dev), odd, False)
+    pts, feats = torch.zeros((4, 3), device=dev), torch.zeros((4, 3, 4, 8), device=dev)
+    aux, cot = torch.zeros((4, 3, 3), device=dev, dtype=torch.int32), torch.zeros((4, 3, 8),
+                                                                                  device=dev)
+    with pytest.raises(TypeError):  # a tet rank is int32
+        hashgrid.position_grad(spec, pts, feats, aux.float(), cot)
+    with pytest.raises(ValueError):  # g for 2 levels of 3
+        hashgrid.position_grad(spec, pts, feats, aux, cot[:, :2])
+    with pytest.raises(ValueError):  # the kernel takes 1, 2, 4 or 8 features
+        wide = _spec("tet", 16)
+        hashgrid.position_grad(wide, pts, torch.zeros((4, 3, 4, 16), device=dev), aux,
+                               torch.zeros((4, 3, 16), device=dev))
+    with pytest.raises(ValueError):  # pts on the CPU
+        hashgrid.position_grad(spec, pts.cpu(), feats, aux, cot)
     with pytest.raises(ValueError):  # 33 odd features need 33 lanes a row
         scatter.sorted_segment_sum(torch.zeros((4,), device=dev, dtype=torch.int32),
                                    torch.zeros((4, 33), device=dev), 16)
@@ -298,23 +400,27 @@ def _same(got, ref) -> bool:
 def test_tracker_graph_replays_the_uncaptured_solve(dev):
     """Frames 1-3 with the map changed in place between them, on the same
     draws, then frame 3 drawn from two generators seeded alike: one
-    capture, a replay per call, and a replay counts the encode launches of
-    one uncaptured solve (the first call's warm-ups add GRAPH_WARMUPS
-    solves' worth), none of them on a side stream."""
+    capture, a replay per call, and a replay counts the encode launches and
+    the position-gradient launches (made from autograd's own thread) of one
+    uncaptured solve (the first call's warm-ups add GRAPH_WARMUPS solves'
+    worth), none of them on a side stream."""
     from test_torch_track_graph import update_map
 
     p, eager = _tracker_pair(dev)
     spans.clear()
-    per_solve = []
+    kernels = ("encode.launches", "pos_grad.launches")
+    per_solve = {k: [] for k in kernels}
     for k, i in enumerate((1, 2, 3)):
         if k:
             update_map(p.params, k)
         draws = eager.draw_ahead(torch.Generator(dev).manual_seed(k), dev)
-        c0 = spans.counters().get("encode.launches", 0)
+        c0 = spans.counters()
         ref, n_ref = eager.track(*p.args(i), None, draws=draws)
-        c1 = spans.counters()["encode.launches"]
+        c1 = spans.counters()
         got, n_got = p.tracker.track(*p.args(i), None, draws=draws)
-        per_solve.append((c1 - c0, spans.counters()["encode.launches"] - c1))
+        c2 = spans.counters()
+        for name in kernels:
+            per_solve[name].append((c1[name] - c0.get(name, 0), c2[name] - c1[name]))
         assert n_ref == n_got == 50
         assert _same(got, ref), (i, got, ref)
     got, _ = p.tracker.track(*p.args(3), torch.Generator(dev).manual_seed(9))
@@ -323,10 +429,11 @@ def test_tracker_graph_replays_the_uncaptured_solve(dev):
     c = spans.counters()
     assert c["track.graph.captures"] == 1 and c["track.graph.replays"] == 4
     assert c["track.solves"] == 8
-    n = per_solve[0][0]
-    assert n > 0 and per_solve[0][1] == (1 + graphs.GRAPH_WARMUPS) * n
-    assert all(a == b == n for a, b in per_solve[1:]), per_solve
-    assert c.get("encode.side_launches", 0) == 0
+    for name, counts in per_solve.items():
+        n = counts[0][0]
+        assert n > 0 and counts[0][1] == (1 + graphs.GRAPH_WARMUPS) * n, (name, counts)
+        assert all(a == b == n for a, b in counts[1:]), (name, counts)
+    assert c.get("encode.side_launches", 0) == 0 and c.get("pos_grad.side_launches", 0) == 0
 
 
 def test_tracker_captures_beside_a_thread_that_allocates(dev):

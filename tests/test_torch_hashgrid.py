@@ -160,6 +160,53 @@ def test_table_gradient_skipped_when_table_frozen():
     assert spans.counters().get("table_grad.launches", 0) == before  # CPU tensors never launch
 
 
+@pytest.mark.parametrize("interp,F", [("tet", 8), ("trilinear", 2)])
+def test_position_grad_on_cpu_is_the_plain_chain(interp, F):
+    """On CPU tensors ``position_grad`` is ``position_grad_plain`` bit for
+    bit, and so is the point gradient of a backward through hash_encode;
+    no kernel launch is counted."""
+    _, ts = _specs(**BASE, n_features=F, interp=interp)
+    table, pts = _inputs(14, F)
+    cot = torch.tensor(np.random.default_rng(15).normal(size=(pts.shape[0], 3 * F)),
+                       dtype=torch.float32)
+    _, feats, _, _, aux = tg.encode_forward_plain(torch.tensor(pts), torch.tensor(table), ts,
+                                                  True)
+    g = cot.reshape(-1, 3, F)
+    before = spans.counters().get("pos_grad.launches", 0)
+    ref = th.position_grad_plain(ts, torch.tensor(pts), feats, aux, g)
+    assert torch.equal(th.position_grad(ts, torch.tensor(pts), feats, aux, g), ref)
+    _, p, out = _torch_encode(table, pts, ts, grad=True)
+    (out * cot).sum().backward()
+    assert torch.equal(p.grad, ref)
+    assert spans.counters().get("pos_grad.launches", 0) == before
+
+
+@pytest.mark.parametrize("points_grad", [True, False])
+def test_position_grad_span_inside_encode_bwd(points_grad):
+    """Traced, a backward that takes a point gradient opens
+    ``encode_bwd.pos`` inside its ``encode_bwd``; one that takes none (the
+    TV term's: the table's alone) opens none."""
+    _, ts = _specs(**BASE, n_features=2, interp="trilinear")
+    table, pts = _inputs(16, 2)
+    spans.clear()
+    spans.enable()
+    try:
+        _, _, out = _torch_encode(table, pts, ts, grad=True)
+        if not points_grad:
+            t = torch.tensor(table, requires_grad=True)
+            out = th.hash_encode(t, torch.tensor(pts), ts)
+        out.sum().backward()
+    finally:
+        spans.disable()
+    kept = spans.spans()
+    bwd = [s for s in kept if s.name == "encode_bwd"]
+    pos = [s for s in kept if s.name == "encode_bwd.pos"]
+    assert len(bwd) == 1
+    assert len(pos) == int(points_grad)
+    for s in pos:
+        assert s.parent == bwd[0].id and bwd[0].start_ns <= s.start_ns <= s.end_ns <= bwd[0].end_ns
+
+
 @pytest.mark.parametrize("interp", ["tet", "trilinear"])
 def test_jvp_matches_jax_forward_mode(interp):
     """The encode's jvp, batched over 7 tangents by torch.func.vmap as the

@@ -213,3 +213,36 @@ def test_tally_holds_back_this_thread_s_counts():
     assert outer == {"a": 3} and inner == {"a": 1}
     assert spans.counters() == {"b": 5, "c": 1}
     spans.clear()
+
+
+def test_tally_of_a_stream_holds_back_other_threads_counts_on_it(monkeypatch):
+    """Inside ``tally(stream)`` another thread's counts on that stream add to
+    the block's dict (as autograd's CUDA thread runs a captured backward on
+    the capture's stream); on another stream, or after the block, they reach
+    the counters. The threads' streams are stand-ins: there is no card here."""
+    class Stream:
+        cuda_stream = 7
+
+    local = threading.local()
+    monkeypatch.setattr(spans, "_stream_key", lambda: getattr(local, "stream", 0))
+
+    def count_on(stream, name):
+        local.stream = stream
+        spans.count(name)
+
+    def in_thread(stream, name):
+        t = threading.Thread(target=count_on, args=(stream, name))
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+
+    spans.clear()
+    with spans.tally(Stream()) as held:
+        spans.count("a")
+        in_thread(7, "b")
+        in_thread(8, "c")
+    in_thread(7, "d")
+    assert held == {"a": 1, "b": 1}
+    assert spans.counters() == {"c": 1, "d": 1}
+    assert spans._stream_tallies == {}
+    spans.clear()

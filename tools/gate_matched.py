@@ -561,12 +561,14 @@ def _apply_sets(cfg: dict, sets) -> dict:
 
 
 def _plain_kernels():
-    """The encode's and the table gradient's wrappers replaced by their
-    plain versions (``ops/hashgrid.py`` looks both up at each call)."""
-    from dnsjax_torch.ops import gather, scatter
+    """The encode's, the table gradient's and the position gradient's
+    wrappers replaced by their plain versions (``ops/hashgrid.py`` looks
+    each up at each call)."""
+    from dnsjax_torch.ops import gather, hashgrid, scatter
 
     gather.encode_forward = gather.encode_forward_plain
     scatter.table_grad = scatter.table_grad_plain
+    hashgrid.position_grad = hashgrid.position_grad_plain
 
 
 def _host_solve():
